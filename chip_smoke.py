@@ -1,0 +1,349 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--report details.json]
+
+Builds the port's CUDA kernels from `dsp_slam_rgbd_tpu_torch/csrc/`,
+holds each against its plain PyTorch version on the card, drives the main
+path (batched object reconstruction at the full cars_64 decoder width,
+with the committed fixture decoder) and checks its output, then times each
+kernel at the main path's shapes.  Exits non-zero, with no result line, if
+there is no card or any phase fails.  Prints, before the last line, the
+card's name and power limit and one JSON line of kernel numbers; the last
+line is {"ok": true, "device": {...}}.  With --report, every measured
+number also goes to that JSON file.
+
+Tolerances (kernel vs plain version, same inputs, on the card):
+  * f32: sdf atol 2e-5; Jacobian atol 2e-4 on rows whose ReLU
+    pre-activations all keep |pre| >= 1e-6 (nearer 0 another summation
+    order may take the other mask; at most 10% of rows are left out);
+  * bf16 vs plain bf16: sdf atol 1e-2, Jacobian Frobenius relative 2e-2
+    (same rounding points, f32 sums in another order can flip a bf16
+    rounding);
+  * bf16 vs f32: Jacobian row cosine >= 0.90, Frobenius relative <= 0.25;
+  * one f32 GN iteration, kernels on the card vs plain versions on the
+    CPU: pose and code atol 2e-3.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "ellipsoid_decoder_64.npz")
+
+SDF_ATOL, JAC_ATOL, TIE = 2e-5, 2e-4, 1e-6
+BF16_SDF_ATOL, BF16_JAC_FROB = 1e-2, 2e-2
+# main path: bench.py's shapes
+B, N_PTS, N_RAYS, ITERS = 8, 256, 512, 10
+# (bf16 dense tensor-core FLOP/s, memory bytes/s): NVIDIA data sheets
+PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H200": (989e12, 4.8e12), "H100": (989e12, 3.35e12)}
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def smi_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    """Mean device time of fn over `reps` back-to-back calls (CUDA events),
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile_fit(fit, untraced_ms):
+    """Device time of one traced fit, from torch.profiler's kernel events:
+    total busy time, the share the mlp_sdf kernels take, the five kernels
+    that take the most, and the idle share of an untraced fit's wall time
+    (tracing slows the host, not the kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in p.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    check(busy > 0, "the profiler saw device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"traced_wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / untraced_ms,
+            "mlp_sdf_ms": sum(v for k, v in by_name.items() if "mlp_sdf" in k),
+            "n_kernels": sum(1 for e in p.events() if e.device_type == DeviceType.CUDA),
+            "top": [(k[:60], v) for k, v in top]}
+
+
+def frob_rel(a, b):
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--report", help="write the measured numbers to this JSON file")
+    opts = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from dsp_slam_rgbd_tpu_torch.models import deepsdf, mesh
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import build, mlp_sdf
+    from dsp_slam_rgbd_tpu_torch.recon import optimizer as opt
+    from dsp_slam_rgbd_tpu_torch.tools import ellipsoid
+
+    dev = torch.device("cuda")
+    report = {}
+
+    # ---- 1. device
+    smi = smi_line()
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[-1]
+    name = torch.cuda.get_device_name(0)
+    print(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
+          f"| nvcc {nvcc}", flush=True)
+    peak_bf16, mem_bw = next(v for k, v in PEAKS.items() if k in name)
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    build.load()
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in build.ptxas_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    report["build"] = {"seconds": build_s, "ptxas": ptxas}
+    print(f"phase 2 build: {build_s:.1f} s (nvcc {build.build_seconds} s); "
+          f"{' / '.join(ptxas[:8])}", flush=True)
+
+    # ---- 3. kernels vs plain versions at cars_64 width
+    dec = deepsdf.init_decoder(deepsdf.DecoderSpec(), seed=0, device=dev)
+    gen = np.random.default_rng(0)
+    cases = []
+    for n, per_row in ((300, False), (700, True)):
+        code = torch.tensor(gen.standard_normal((n, 64) if per_row else 64) * 0.2,
+                            dtype=torch.float32, device=dev)
+        xyz = torch.tensor(gen.standard_normal((n, 3)) * 0.5, dtype=torch.float32,
+                           device=dev)
+        res = {}
+        for dt in (torch.float32, torch.bfloat16):
+            wb = dec.packed(dt)
+            s_k, g_k = mlp_sdf.sdf_and_input_jacobian_fused(wb, code, xyz, dt)
+            v_k = mlp_sdf.sdf_value_fused(wb, code, xyz, dt)
+            s_p, g_p = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, dt)
+            torch.cuda.synchronize()
+            tag = f"n={n} {'per-row' if per_row else 'shared'} {dt}"
+            for t in (s_k, g_k, v_k):
+                check(bool(torch.isfinite(t).all()), f"{tag}: finite kernel output")
+            e_s = max(float((s_k - s_p).abs().max()), float((v_k - s_p).abs().max()))
+            if dt == torch.float32:
+                keep = mlp_sdf.relu_margin(wb, code, xyz) >= TIE
+                check(float(keep.float().mean()) >= 0.9, f"{tag}: <=10% near-tie rows")
+                e_g = float((g_k - g_p)[keep].abs().max())
+                check(e_s <= SDF_ATOL and e_g <= JAC_ATOL, f"{tag}: sdf {e_s} jac {e_g}")
+            else:
+                e_g = frob_rel(g_k, g_p)
+                check(e_s <= BF16_SDF_ATOL and e_g <= BF16_JAC_FROB,
+                      f"{tag}: sdf {e_s} jac frob {e_g}")
+            res[dt] = g_k
+            cases.append({"case": tag, "sdf_err": e_s, "jac_err": e_g})
+        jf, jb = res[torch.float32], res[torch.bfloat16]
+        cos = (jf * jb).sum(1) / (jf.norm(dim=1) * jb.norm(dim=1) + 1e-12)
+        check(float(cos.min()) >= 0.90 and frob_rel(jb, jf) <= 0.25,
+              f"n={n}: bf16 vs f32 cos {float(cos.min())} frob {frob_rel(jb, jf)}")
+        cases.append({"case": f"n={n} bf16 vs f32", "cos_min": float(cos.min()),
+                      "frob": frob_rel(jb, jf)})
+    report["kernel_vs_plain"] = cases
+    print("phase 3 kernels vs plain: " + "; ".join(
+        f"{c['case']}: " + ", ".join(f"{k} {v:.3g}" for k, v in c.items() if k != "case")
+        for c in cases), flush=True)
+
+    # ---- 4. the main path: batched reconstruction, bench.py's shapes
+    fixture = deepsdf.load_npz(FIXTURE, device=dev)
+    probs = [ellipsoid.make_problem(100 + i, N_PTS, N_RAYS) for i in range(B)]
+
+    def stack(k, dtype=None):
+        return torch.tensor(np.stack([p[k] for p in probs]), dtype=dtype, device=dev)
+
+    args = (stack("T_init"), stack("pts"), torch.ones(B, N_PTS, dtype=torch.bool, device=dev),
+            stack("rays"), torch.ones(B, N_RAYS, dtype=torch.bool, device=dev),
+            stack("depth"), stack("fg_mask"))
+    cfg = opt.ReconConfig.gpu_fast(num_iterations=ITERS)
+
+    def fit():
+        return opt.reconstruct_objects_batched(fixture, cfg, *args,
+                                               compute_dtype=opt.FAST_DTYPE)
+
+    mlp_sdf.reset_launch_counts()
+    out = fit()
+    torch.cuda.synchronize()
+    launches = dict(mlp_sdf.LAUNCHES)
+    check(all(v > 0 for v in launches.values()), f"both kernels on the main path: {launches}")
+    check(bool(out.is_good.all()), f"every fit is_good: {out.is_good.tolist()}")
+    check(bool(torch.isfinite(out.t_cam_obj).all()), "finite poses")
+    T_fit = out.t_cam_obj.cpu().numpy()
+    err0 = np.mean([ellipsoid.pose_errors(p["T_init"], p)[0] for p in probs])
+    errs = np.array([ellipsoid.pose_errors(T_fit[i], p) for i, p in enumerate(probs)])
+    check(errs[:, 0].mean() < err0, f"mean translation error {errs[:, 0].mean()} < {err0}")
+    reps = 3
+    fit()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fit()
+    torch.cuda.synchronize()
+    fit_s = (time.perf_counter() - t0) / reps
+    prof = profile_fit(fit, fit_s * 1e3)
+    report["main_path"] = {
+        "launches": launches, "fits_per_s": B / fit_s, "batch_s": fit_s,
+        "t_err_init_mean": float(err0), "errors_mean": errs.mean(0).tolist(),
+        "profile": prof, "card": smi}
+    print(f"phase 4 main path: B={B} pts={N_PTS} rays={N_RAYS} iters={ITERS} gpu_fast bf16: "
+          f"launches {launches}; mean t_err {err0:.4f} -> {errs[:, 0].mean():.4f} m, "
+          f"s_err {errs[:, 1].mean():.4f}, r_err {errs[:, 2].mean():.2f} deg; "
+          f"{B / fit_s:.2f} fits/s ({fit_s * 1e3:.1f} ms/batch) on {smi}", flush=True)
+    print(f"phase 4 profile (one traced fit): traced wall {prof['traced_wall_ms']:.1f} ms, busy "
+          f"{prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}), mlp_sdf kernels "
+          f"{prof['mlp_sdf_ms']:.1f} ms, {prof['n_kernels']} kernel launches; top: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in prof["top"]), flush=True)
+
+    # ---- 5. f32 parity: one GN iteration, kernels (card) vs plain (CPU)
+    rng = np.random.default_rng(3)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = [0.0, 0.0, 6.0]
+    pts = (rng.standard_normal((64, 3)) * 0.4 + [0, 0, 6.0]).astype(np.float32)
+    rays = (rng.standard_normal((32, 3)) * 0.03 + [0, 0, 1.0]).astype(np.float32)
+    rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+    one = (T, pts, np.ones(64, bool), rays, np.ones(32, bool), np.full(32, 6.0, np.float32),
+           np.ones(32, bool))
+    cfg1 = opt.ReconConfig(num_iterations=1, num_depth_samples=12, max_grad_points=256,
+                           max_valid_samples=512)
+    r_k = opt.reconstruct_object(dec, cfg1, *(torch.tensor(a, device=dev) for a in one))
+    r_p = opt.reconstruct_object(deepsdf.init_decoder(deepsdf.DecoderSpec(), seed=0, device="cpu"),
+                                 cfg1, *(torch.tensor(a) for a in one))
+    e_t = float((r_k.t_cam_obj.cpu() - r_p.t_cam_obj).abs().max())
+    e_c = float((r_k.code.cpu() - r_p.code).abs().max())
+    check(e_t <= 2e-3 and e_c <= 2e-3 and bool(r_k.is_good) == bool(r_p.is_good),
+          f"f32 parity pose {e_t} code {e_c}")
+    report["f32_parity"] = {"pose_err": e_t, "code_err": e_c}
+    print(f"phase 5 f32 parity (1 GN iteration, card kernels vs CPU plain): pose {e_t:.3g} "
+          f"code {e_c:.3g}", flush=True)
+
+    # ---- 6. mesh from one fitted code (64^3 decode through the value kernel)
+    m = mesh.MeshExtractor(fixture).extract_mesh_from_code(out.code[0])
+    nv, nf = len(m["vertices"]), len(m["faces"])
+    check(nv > 0 and nf > 0, f"mesh {nv} vertices {nf} faces")
+    report["mesh"] = {"vertices": nv, "faces": nf}
+    print(f"phase 6 mesh: {nv} vertices, {nf} faces", flush=True)
+
+    # ---- 7. kernel times at the main path's shapes (bf16, as gpu_fast runs)
+    bf = torch.bfloat16
+    wb = fixture.packed(bf)
+    w0, W, _ = wb
+    fwd_macs = sum(i * o for i, o in fixture.spec.layer_dims())
+    w_bytes = sum(t.numel() * t.element_size() for t in wb)
+
+    def timing(kind, rows, n_obj):
+        # object codes and points near their ellipsoid surfaces, where
+        # tanh is not saturated and the Jacobian is not 0
+        g = np.random.default_rng(rows)
+        code_np = g.standard_normal((n_obj, 64))
+        dirs = g.standard_normal((n_obj, rows // n_obj, 3))
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        xyz_np = (dirs * ellipsoid.code_to_axes(code_np)[:, None]
+                  * g.uniform(0.8, 1.2, dirs.shape[:2] + (1,)))
+        code = torch.tensor(code_np, dtype=torch.float32, device=dev)
+        xyz = torch.tensor(xyz_np, dtype=torch.float32, device=dev)
+        jac = kind == "jacobian"
+        kern = mlp_sdf.sdf_and_input_jacobian_fused if jac else mlp_sdf.sdf_value_fused
+        plain = mlp_sdf.sdf_and_input_jacobian_plain if jac else mlp_sdf.sdf_value_plain
+        # held to the bf16 tolerances at the main path's shapes
+        k_out, p_out = kern(wb, code, xyz, bf), plain(wb, code, xyz, bf)
+        if jac:
+            err = float((k_out[1] - p_out[1]).abs().max())
+            e_s, e_g = float((k_out[0] - p_out[0]).abs().max()), frob_rel(k_out[1], p_out[1])
+        else:
+            err = e_s = float((k_out - p_out).abs().max())
+            e_g = 0.0
+        check(e_s <= BF16_SDF_ATOL and e_g <= BF16_JAC_FROB,
+              f"{kind} at {rows} rows: sdf {e_s} jac frob {e_g}")
+        rand = torch.Generator(device=dev).manual_seed(rows)
+        x = torch.randn(rows, 128, device=dev, dtype=bf, generator=rand)
+        h = torch.randn(rows, 512, device=dev, dtype=bf, generator=rand)
+
+        def library():       # the same products, one torch.matmul each
+            torch.matmul(x, w0)
+            for i in range(8):
+                torch.matmul(h, W[i])
+            if jac:
+                for i in range(8):
+                    torch.matmul(h, W[i].T)
+
+        ms = cuda_ms(lambda: kern(wb, code, xyz, bf), 20)
+        plain_ms = cuda_ms(lambda: plain(wb, code, xyz, bf), 5)
+        library_ms = cuda_ms(library, 20)
+        flops = 2.0 * fwd_macs * rows * (2 if jac else 1)
+        io = w_bytes + code.numel() * 4 + xyz.numel() * 4 + rows * 4 * (1 + (67 if jac else 0))
+        t_ops, t_bytes = flops / peak_bf16 * 1e3, io / mem_bw * 1e3
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "max_abs_err": err, "rows": rows, "dtype": "bf16",
+                "tflops": flops / ms / 1e9}
+
+    t_val = timing("value", B * N_RAYS * cfg.coarse_samples, B)
+    t_jac = timing("jacobian", B * cfg.max_grad_points, B)
+    t_jac_sdf = timing("jacobian", B * N_PTS, B)
+    report["timing"] = {"value": t_val, "jacobian_render": t_jac, "jacobian_sdf": t_jac_sdf,
+                        "card": smi}
+    for label, t in (("value", t_val), ("jacobian render", t_jac),
+                     ("jacobian sdf", t_jac_sdf)):
+        print(f"phase 7 timing {label}: rows {t['rows']} kernel {t['ms']:.3f} ms "
+              f"({t['tflops']:.1f} TFLOP/s), plain {t['plain_ms']:.3f} ms, torch.matmul "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"max_abs_err {t['max_abs_err']:.3g} on {smi}", flush=True)
+    src = "dsp_slam_rgbd_tpu_torch/csrc/mlp_sdf.cu"
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "rows", "dtype")
+    kernels = [
+        dict(name="mlp_sdf_value", route="cuda", source=src,
+             replaces="dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py:237",
+             **{k: v for k, v in dict(t_val, launches=launches["mlp_sdf_value"]).items()
+                if k in keys}),
+        dict(name="mlp_sdf_jacobian", route="cuda", source=src,
+             replaces="dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py:159",
+             **{k: v for k, v in dict(t_jac, launches=launches["mlp_sdf_jacobian"]).items()
+                if k in keys}),
+    ]
+    if opts.report:
+        os.makedirs(os.path.dirname(os.path.abspath(opts.report)), exist_ok=True)
+        with open(opts.report, "w") as f:
+            json.dump(report, f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

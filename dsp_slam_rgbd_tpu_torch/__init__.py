@@ -1,0 +1,30 @@
+"""dsp_slam_rgbd_tpu_torch — the object-SLAM framework in PyTorch and CUDA.
+
+The port of `dsp_slam_rgbd_tpu` (JAX on a TPU) to PyTorch on an NVIDIA
+Hopper GPU.  It mirrors the JAX package's module paths so each counterpart
+is easy to find; the decoder's two fused TPU kernels are hand-written CUDA
+for sm_90a under `csrc/`, built at first use (`ops/cuda/build.py`).
+
+Layout (ported so far):
+  ops/       Lie groups, robust norms; ops/cuda: the fused decoder kernels
+  models/    DeepSDF decoder (nn.Module) + mesh extraction
+  recon/     object shape+pose Gauss-Newton optimizer (the FLOPs core)
+  system/    detection containers and label files
+  tools/     single-frame reconstruction CLI
+  entry.py   the flagship reconstruction step with example inputs
+
+Entry points take a `device` and default to "cuda"; without a card they
+raise unless the caller passes device="cpu".  On CPU tensors every kernel
+wrapper runs its plain PyTorch version.
+"""
+
+import torch as _torch
+
+# Geometry / Gauss-Newton math is float32 and precision-critical (the JAX
+# package forces "highest" matmul precision for the same reason).  TF32
+# keeps ~3 decimal digits, so it is off for matmuls and convolutions; the
+# decoder's bf16 mode is explicit and dtype-driven, unaffected by this.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
