@@ -13,6 +13,11 @@ card's name and power limit and one JSON line of kernel numbers; the last
 line is {"ok": true, "device": {...}}.  With --report, every measured
 number also goes to that JSON file.
 
+Phase 2 also counts the tensor-core (HGMMA) instructions in the bf16
+value kernel's SASS and fails if there are none; phase 3 also holds that
+kernel to its plain version at ragged row counts up to the main path's
+size, for shared, per-row and per-object codes.
+
 Tolerances (kernel vs plain version, same inputs, on the card):
   * f32: sdf atol 2e-5; Jacobian atol 2e-4 on rows whose ReLU
     pre-activations all keep |pre| >= 1e-6 (nearer 0 another summation
@@ -25,6 +30,7 @@ Tolerances (kernel vs plain version, same inputs, on the card):
     CPU: pose and code atol 2e-3.
 """
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -41,6 +47,8 @@ SDF_ATOL, JAC_ATOL, TIE = 2e-5, 2e-4, 1e-6
 BF16_SDF_ATOL, BF16_JAC_FROB = 1e-2, 2e-2
 # main path: bench.py's shapes
 B, N_PTS, N_RAYS, ITERS = 8, 256, 512, 10
+# bf16 value kernel sweep: around its 64-row tile, and past the main path's size
+VALUE_ROWS = (1, 63, 64, 65, 300, 4097, 102417)
 # (bf16 dense tensor-core FLOP/s, memory bytes/s): NVIDIA data sheets
 PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H200": (989e12, 4.8e12), "H100": (989e12, 3.35e12)}
 
@@ -97,6 +105,28 @@ def profile_fit(fit, untraced_ms):
             "top": [(k[:60], v) for k, v in top]}
 
 
+def hgmma_count(build, kernel):
+    """HGMMA (wgmma) instructions in `kernel`'s SASS in the built library."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", build.lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    sections = sass.split("Function : ")[1:]
+    check(any(kernel in sec.splitlines()[0] for sec in sections), f"{kernel} in the SASS")
+    return sum(sec.count("HGMMA") for sec in sections if kernel in sec.splitlines()[0])
+
+
+def code_forms(n, gen, dev):
+    """(form, code, xyz) over n rows for a shared, per-row and per-object code
+    (the largest object count <= 20 that divides n)."""
+    b = max(d for d in range(1, 21) if n % d == 0)
+    xyz = gen.standard_normal((n, 3)) * 0.5
+    for form, code, x in (("shared", gen.standard_normal(64), xyz),
+                          ("per-row", gen.standard_normal((n, 64)), xyz),
+                          ("per-object", gen.standard_normal((b, 64)), xyz.reshape(b, n // b, 3))):
+        yield (form, torch.tensor(code * 0.2, dtype=torch.float32, device=dev),
+               torch.tensor(x, dtype=torch.float32, device=dev))
+
+
 def frob_rel(a, b):
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
@@ -131,9 +161,18 @@ def main(argv=None):
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in build.ptxas_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    report["build"] = {"seconds": build_s, "ptxas": ptxas}
+    vcfg = mlp_sdf.value_kernel_config()
+    n_hgmma = hgmma_count(build, "mlp_sdf_value_tc_kernel")
+    check(n_hgmma > 0, "HGMMA instructions in the bf16 value kernel")
+    check(vcfg["local_bytes"] == 0, f"the bf16 value kernel does not spill: {vcfg}")
+    report["build"] = {"seconds": build_s, "ptxas": ptxas, "value_kernel": vcfg,
+                       "value_hgmma": n_hgmma}
     print(f"phase 2 build: {build_s:.1f} s (nvcc {build.build_seconds} s); "
           f"{' / '.join(ptxas[:8])}", flush=True)
+    print(f"phase 2 bf16 value kernel: {n_hgmma} HGMMA in its SASS; stage {vcfg['stage']}, "
+          f"{vcfg['smem_bytes']} B shared memory per block, {vcfg['threads']} threads, "
+          f"{vcfg['rows_per_block']} rows per block, {vcfg['registers']} registers, "
+          f"{vcfg['local_bytes']} B local", flush=True)
 
     # ---- 3. kernels vs plain versions at cars_64 width
     dec = deepsdf.init_decoder(deepsdf.DecoderSpec(), seed=0, device=dev)
@@ -148,7 +187,7 @@ def main(argv=None):
         for dt in (torch.float32, torch.bfloat16):
             wb = dec.packed(dt)
             s_k, g_k = mlp_sdf.sdf_and_input_jacobian_fused(wb, code, xyz, dt)
-            v_k = mlp_sdf.sdf_value_fused(wb, code, xyz, dt)
+            v_k = mlp_sdf.sdf_value_fused(wb, code, xyz, dt, dec.value_tiles)
             s_p, g_p = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, dt)
             torch.cuda.synchronize()
             tag = f"n={n} {'per-row' if per_row else 'shared'} {dt}"
@@ -172,6 +211,19 @@ def main(argv=None):
               f"n={n}: bf16 vs f32 cos {float(cos.min())} frob {frob_rel(jb, jf)}")
         cases.append({"case": f"n={n} bf16 vs f32", "cos_min": float(cos.min()),
                       "frob": frob_rel(jb, jf)})
+    # the bf16 value kernel at ragged sizes and every code form, random weights
+    bf = torch.bfloat16
+    for n in VALUE_ROWS:
+        for form, code, xyz in code_forms(n, gen, dev):
+            v_k = mlp_sdf.sdf_value_fused(dec.packed(bf), code, xyz, bf, dec.value_tiles)
+            v_p = mlp_sdf.sdf_value_plain(dec.packed(bf), code, xyz, bf)
+            torch.cuda.synchronize()
+            tag = f"value n={n} {form} bf16"
+            check(v_k.shape == v_p.shape and bool(torch.isfinite(v_k).all()),
+                  f"{tag}: finite kernel output of the plain version's shape")
+            e_s = float((v_k - v_p).abs().max())
+            check(e_s <= BF16_SDF_ATOL, f"{tag}: sdf {e_s}")
+            cases.append({"case": tag, "sdf_err": e_s})
     report["kernel_vs_plain"] = cases
     print("phase 3 kernels vs plain: " + "; ".join(
         f"{c['case']}: " + ", ".join(f"{k} {v:.3g}" for k, v in c.items() if k != "case")
@@ -256,7 +308,6 @@ def main(argv=None):
     print(f"phase 6 mesh: {nv} vertices, {nf} faces", flush=True)
 
     # ---- 7. kernel times at the main path's shapes (bf16, as gpu_fast runs)
-    bf = torch.bfloat16
     wb = fixture.packed(bf)
     w0, W, _ = wb
     fwd_macs = sum(i * o for i, o in fixture.spec.layer_dims())
@@ -274,7 +325,8 @@ def main(argv=None):
         code = torch.tensor(code_np, dtype=torch.float32, device=dev)
         xyz = torch.tensor(xyz_np, dtype=torch.float32, device=dev)
         jac = kind == "jacobian"
-        kern = mlp_sdf.sdf_and_input_jacobian_fused if jac else mlp_sdf.sdf_value_fused
+        kern = (mlp_sdf.sdf_and_input_jacobian_fused if jac else
+                functools.partial(mlp_sdf.sdf_value_fused, tiles=fixture.value_tiles))
         plain = mlp_sdf.sdf_and_input_jacobian_plain if jac else mlp_sdf.sdf_value_plain
         # held to the bf16 tolerances at the main path's shapes
         k_out, p_out = kern(wb, code, xyz, bf), plain(wb, code, xyz, bf)
@@ -313,6 +365,11 @@ def main(argv=None):
     t_val = timing("value", B * N_RAYS * cfg.coarse_samples, B)
     t_jac = timing("jacobian", B * cfg.max_grad_points, B)
     t_jac_sdf = timing("jacobian", B * N_PTS, B)
+    # every block of the value kernel streams the whole packed weight stack from L2
+    blocks = -(-t_val["rows"] // vcfg["rows_per_block"])
+    t_val["l2_bytes"] = blocks * mlp_sdf.VALUE_STAGES * mlp_sdf.VALUE_STAGE_BYTES
+    t_val["l2_tb_per_s"] = t_val["l2_bytes"] / t_val["ms"] / 1e9
+    t_val.update({k: vcfg[k] for k in ("stage", "smem_bytes", "registers")})
     report["timing"] = {"value": t_val, "jacobian_render": t_jac, "jacobian_sdf": t_jac_sdf,
                         "card": smi}
     for label, t in (("value", t_val), ("jacobian render", t_jac),
@@ -321,11 +378,16 @@ def main(argv=None):
               f"({t['tflops']:.1f} TFLOP/s), plain {t['plain_ms']:.3f} ms, torch.matmul "
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
               f"max_abs_err {t['max_abs_err']:.3g} on {smi}", flush=True)
+    print(f"phase 7 value kernel: stage {t_val['stage']}, {t_val['smem_bytes']} B shared "
+          f"memory per block, {t_val['registers']} registers; weight stream from L2 "
+          f"{t_val['l2_bytes'] / 1e9:.3f} GB per launch = {t_val['l2_tb_per_s']:.2f} TB/s",
+          flush=True)
     src = "dsp_slam_rgbd_tpu_torch/csrc/mlp_sdf.cu"
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "rows", "dtype")
     kernels = [
-        dict(name="mlp_sdf_value", route="cuda", source=src,
+        dict(name="mlp_sdf_value", route="cuda",
+             source="dsp_slam_rgbd_tpu_torch/csrc/mlp_sdf_value_tc.cu",
              replaces="dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py:237",
              **{k: v for k, v in dict(t_val, launches=launches["mlp_sdf_value"]).items()
                 if k in keys}),

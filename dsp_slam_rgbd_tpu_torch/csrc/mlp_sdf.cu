@@ -3,10 +3,12 @@
 //
 // Replaces the two Pallas TPU kernels of dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py:
 //   mlp_sdf_jacobian  <- _make_kernel        (value + d sdf / d[code, xyz])
-//   mlp_sdf_value     <- _make_value_kernel  (value only)
+//   mlp_sdf_value     <- _make_value_kernel  (value only; f32 here, bf16 on
+//                                             the tensor cores in
+//                                             mlp_sdf_value_tc.cu)
 //
-// What bounds it on this card: operations.  One row costs 4.2 MFLOP
-// forward (8.4 MFLOP with the Jacobian) against 12 input bytes, and the
+// What bounds it on this card: operations.  One row costs 3.67 MFLOP
+// forward (7.34 MFLOP with the Jacobian) against 12 input bytes, and the
 // 4.2 MB (bf16) / 8.4 MB (f32) weight stack is read from device memory
 // once and from L2 after that, far above the card's ~295 FLOP/byte ridge.
 // This version multiplies on the f32 FMA pipes, so their rate (67 TFLOP/s
@@ -391,16 +393,21 @@ int launch(const void* code, int rows_per_code, const void* xyz, int n,
 
 }  // namespace
 
+// The bf16 value pass, on the tensor cores (mlp_sdf_value_tc.cu).
+int mlp_sdf_value_tc(const void* code, int rows_per_code, const void* xyz, int n,
+                     const void* tiles, const void* W, const void* b, void* sdf, void* stream);
+
 // C interface, bound with ctypes.  code (C, 64) f32, row g uses code
 // row g / rows_per_code; xyz (n, 3) f32; w0 (128, 512), W (8, 512, 512)
 // in f32 (bf16 = 0) or bf16 (bf16 = 1); b (9, 512) f32.  Outputs
 // sdf (n,) f32 and, for the Jacobian, grad (n, 67) f32.  Returns the
-// launch's cudaError_t.  n > 0.
+// launch's cudaError_t.  n > 0.  The bf16 value pass reads its weights
+// from tiles, the stage sequence of pack_value_tiles(w0, W), and only
+// layer 8's column from W; in f32 tiles is unused.
 extern "C" int mlp_sdf_value(const void* code, int rows_per_code, const void* xyz,
                              int n, const void* w0, const void* W, const void* b,
-                             int bf16, void* sdf, void* stream) {
-  return bf16 ? launch<__nv_bfloat16, true, false>(code, rows_per_code, xyz, n, w0,
-                                                   W, b, sdf, nullptr, stream)
+                             int bf16, const void* tiles, void* sdf, void* stream) {
+  return bf16 ? mlp_sdf_value_tc(code, rows_per_code, xyz, n, tiles, W, b, sdf, stream)
               : launch<float, false, false>(code, rows_per_code, xyz, n, w0, W, b,
                                             sdf, nullptr, stream);
 }

@@ -68,7 +68,8 @@ class DeepSDFDecoder(nn.Module):
 
     For the cars/chairs_64 layout the fused kernels' packed weights are
     built at construction and rebuilt on every `.to()`/`.cuda()`, in f32
-    and as a bf16 copy (`packed`).
+    and as a bf16 copy (`packed`), with the bf16 value kernel's weight
+    stream beside them (`value_tiles`).
     """
 
     def __init__(self, spec: DecoderSpec, layers):
@@ -86,6 +87,7 @@ class DeepSDFDecoder(nn.Module):
             self.register_buffer(f"W{i}", W.contiguous())
             self.register_buffer(f"b{i}", b.contiguous())
         self._packed: dict = {}
+        self.value_tiles = None
         self._pack()
 
     @property
@@ -104,10 +106,12 @@ class DeepSDFDecoder(nn.Module):
 
     def _pack(self) -> None:
         self._packed = {}
+        self.value_tiles = None
         if self.fused:
             wb = mlp_sdf.pack_params(self.layers, self.spec)
+            w0, W, b = self._packed[torch.bfloat16] = mlp_sdf.cast_packed(wb, torch.bfloat16)
             self._packed[torch.float32] = wb
-            self._packed[torch.bfloat16] = mlp_sdf.cast_packed(wb, torch.bfloat16)
+            self.value_tiles = mlp_sdf.pack_value_tiles(w0, W)
 
     def _apply(self, fn, recurse=True):
         super()._apply(fn, recurse)
@@ -185,7 +189,7 @@ class DeepSDFDecoder(nn.Module):
         the plain sweep otherwise."""
         if self.fused:
             return mlp_sdf.sdf_value_fused(self.packed(compute_dtype), code,
-                                           xyz, compute_dtype)
+                                           xyz, compute_dtype, self.value_tiles)
         return self.sdf(code, xyz, compute_dtype)
 
     def query_with_jacobian(self, code, xyz, compute_dtype=torch.float32):

@@ -1,6 +1,7 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
+`nvcc` compiles every `csrc/*.cu` into an object, all sources at once in
+parallel processes, and links them into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds).  The library
 is named after a hash of the sources and the flags, under `csrc/_build/`
 (ignored by git), so a stale library is never loaded.  A failed build or
@@ -20,13 +21,13 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
 ARCH = "arch=compute_90a,code=sm_90a"
-FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-         "-Xcompiler", "-fPIC"]
+FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None   # wall time of this process's build
 ptxas_log: str = ""                  # nvcc's -Xptxas -v report of that build
+lib_path: str = ""                   # the loaded library
 
 
 class KernelBuildError(RuntimeError):
@@ -57,8 +58,10 @@ def _digest(srcs: list[str]) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mlp_sdf_value.argtypes = [p, i, p, i, p, p, p, i, p, p]
+    lib.mlp_sdf_value.argtypes = [p, i, p, i, p, p, p, i, p, p, p]
     lib.mlp_sdf_value.restype = i
+    lib.mlp_sdf_value_tc_config.argtypes = [ctypes.POINTER(i)]
+    lib.mlp_sdf_value_tc_config.restype = i
     lib.mlp_sdf_jacobian.argtypes = [p, i, p, i, p, p, p, i, p, p, p]
     lib.mlp_sdf_jacobian.restype = i
     lib.mlp_sdf_error_string.argtypes = [i]
@@ -67,7 +70,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built from the sources on first call."""
-    global _lib, build_seconds, ptxas_log
+    global _lib, build_seconds, ptxas_log, lib_path
     with _lock:
         if _lib is not None:
             return _lib
@@ -77,19 +80,33 @@ def load() -> ctypes.CDLL:
         if not os.path.isfile(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *FLAGS, "-Xptxas", "-v", "-o", tmp, *cu]
+            nvcc = _nvcc()
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            objs = [f"{tmp}.{os.path.basename(c)}.o" for c in cu]
+            try:
+                procs = [subprocess.Popen([nvcc, *FLAGS, "-Xptxas", "-v", "-c", "-o", o, c],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True) for c, o in zip(cu, objs)]
+                logs = [p.communicate()[0] for p in procs]
+                ptxas_log = "".join(logs)
+                for p, log in zip(procs, logs):
+                    if p.returncode != 0:
+                        raise KernelBuildError(f"nvcc failed ({p.returncode}):\n{log[-4000:]}")
+                link = subprocess.run([nvcc, "-gencode", ARCH, "-shared", "-o", tmp, *objs],
+                                      capture_output=True, text=True)
+            finally:
+                for o in objs:
+                    if os.path.exists(o):
+                        os.remove(o)
             build_seconds = time.perf_counter() - t0
-            ptxas_log = proc.stderr
-            if proc.returncode != 0:
-                raise KernelBuildError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            if link.returncode != 0:
+                raise KernelBuildError(f"nvcc link failed ({link.returncode}):\n"
+                                       f"{link.stderr[-4000:]}")
             os.replace(tmp, out)
         try:
             lib = ctypes.CDLL(out)
         except OSError as e:
             raise KernelBuildError(f"cannot load {out}: {e}") from e
         _declare(lib)
-        _lib = lib
+        _lib, lib_path = lib, out
         return lib

@@ -2,15 +2,19 @@
 
 Counterpart of `dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py`.  The two Pallas
 TPU kernels (`_make_kernel`, `_make_value_kernel`) are CUDA C++ for sm_90a
-in `csrc/mlp_sdf.cu`; this module packs the weights, checks and flattens
-the inputs, launches the kernels, and keeps beside each one its plain
-PyTorch version (the CPU route and the reference the card is held to).
+in `csrc/mlp_sdf.cu`, with the bf16 value pass on the tensor cores in
+`csrc/mlp_sdf_value_tc.cu`; this module packs the weights, checks and
+flattens the inputs, launches the kernels, and keeps beside each one its
+plain PyTorch version (the CPU route and the reference the card is held to).
 
 Packed layout (as on the TPU): w0 (128, 512) for layer 0 over the input
 rows [code 64 | xyz 3 | 0]; W (8, 512, 512) for layers 1..8, layer 3's 445
 real output columns padded with zeros and layer 8's single output in
 column 0; b (9, 512).  Before layer 4 the raw 67-d input is written into
 columns 445..511 (the decoder's latent re-injection).
+
+The bf16 value kernel reads w0 and W[0..6] as `pack_value_tiles` lays them
+out: the exact shared-memory image of each stage of its weight ring.
 
 Batching: code may be one shared (64,) code, per-row (N, 64) codes, or
 per-object (B, 64) codes over xyz (B, N, 3); every form is one launch over
@@ -21,6 +25,8 @@ the plain version.  Nothing falls back.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from dsp_slam_rgbd_tpu_torch.ops.cuda import build
@@ -30,6 +36,10 @@ IN_DIM = 67     # 64 code + 3 xyz
 IN_PAD = 128    # packed input width of layer 0
 SPLIT = 445     # layer-3 real output width (D − IN_DIM)
 N_LAYERS = 9
+
+VALUE_KC = 64                                  # K rows of a layer per value-kernel stage
+VALUE_STAGES = (IN_PAD + (N_LAYERS - 2) * D) // VALUE_KC   # 58
+VALUE_STAGE_BYTES = VALUE_KC * D * 2           # one stage: 64 K x 512 outputs, bf16
 
 # launches per kernel since the last reset (the plain versions count none)
 LAUNCHES = {"mlp_sdf_value": 0, "mlp_sdf_jacobian": 0}
@@ -85,6 +95,29 @@ def cast_packed(wb, compute_dtype):
     return w0.to(compute_dtype), W.to(compute_dtype), b
 
 
+def pack_value_tiles(w0, W):
+    """bf16 w0 (128, 512) and W[0..6] -> the bf16 value kernel's weight
+    stream, flat (VALUE_STAGES * VALUE_STAGE_BYTES / 2,).
+
+    Stage s holds rows 64s..64s+63 of [w0; W[0]; ...; W[6]] (one K chunk of
+    one layer), transposed so that each output n is a 128-byte row of its
+    64 K values (B K-major), in the 128-byte swizzle: the 16-byte chunk of
+    K values 8c..8c+7 of output n sits at chunk position c ^ (n % 8).  Each
+    stage is one contiguous copy into shared memory; outputs 0..255 and
+    256..511 are its two 32 KB halves.
+    """
+    if w0.dtype != torch.bfloat16 or W.dtype != torch.bfloat16:
+        raise ValueError(f"value tiles are bf16; got {w0.dtype}, {W.dtype}")
+    rows = torch.cat([w0, W[:N_LAYERS - 2].reshape(-1, D)])    # (3712, 512) = (K, N)
+    t = rows.reshape(VALUE_STAGES, VALUE_KC, D).transpose(1, 2)  # (s, n, k)
+    t = t.reshape(VALUE_STAGES, D, VALUE_KC // 8, 8)              # (s, n, chunk, e)
+    n = torch.arange(D, device=w0.device)
+    chunk = torch.arange(VALUE_KC // 8, device=w0.device)
+    src = chunk[None, :] ^ (n % 8)[:, None]     # position p holds chunk p ^ (n % 8)
+    t = torch.gather(t, 2, src[None, :, :, None].expand_as(t))
+    return t.contiguous().reshape(-1)
+
+
 # -- input handling -----------------------------------------------------------
 
 def _flatten(code: torch.Tensor, xyz: torch.Tensor):
@@ -125,6 +158,25 @@ def _check(wb, compute_dtype, codes, rows):
         raise ValueError("weights, code and xyz must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("weights, code and xyz must be contiguous")
+
+
+def _check_tiles(tiles, dev) -> None:
+    n = VALUE_STAGES * VALUE_STAGE_BYTES // 2
+    if (tiles is None or tiles.dtype != torch.bfloat16 or tuple(tiles.shape) != (n,)
+            or tiles.device != dev or not tiles.is_contiguous()):
+        raise ValueError(f"the bf16 value kernel needs tiles = pack_value_tiles(w0, W), "
+                         f"contiguous bf16 ({n},) on {dev}; got "
+                         + ("None" if tiles is None else
+                            f"{tiles.dtype} {tuple(tiles.shape)} on {tiles.device}"))
+
+
+def value_kernel_config() -> dict:
+    """The bf16 value kernel's launch figures, read from the built library."""
+    lib = build.load()
+    out = (ctypes.c_int * 6)()
+    _raise_on(lib, lib.mlp_sdf_value_tc_config(out), "mlp_sdf_value_tc_config")
+    keys = ("smem_bytes", "threads", "rows_per_block", "stage", "registers", "local_bytes")
+    return dict(zip(keys, out))
 
 
 def _stream() -> int:
@@ -229,14 +281,20 @@ def sdf_and_input_jacobian_plain(wb, code, xyz, compute_dtype=torch.float32):
 
 # -- kernel wrappers ----------------------------------------------------------
 
-def sdf_value_fused(wb, code, xyz, compute_dtype=torch.float32):
+def sdf_value_fused(wb, code, xyz, compute_dtype=torch.float32, tiles=None):
     """Value-only query -> sdf with xyz's leading shape.
 
     wb: packed (w0, W, b) with w0 and W in compute_dtype (bf16 = the
-    production mode, f32 = parity), b f32.
+    production mode, f32 = parity), b f32.  tiles: `pack_value_tiles(w0,
+    W)`, which the bf16 kernel reads its weights from (built once per
+    decoder, see `DeepSDFDecoder.value_tiles`); required for bf16 on the
+    card, unused in f32 and by the plain version.
     """
     codes, rpc, rows, lead = _flatten(code, xyz)
     _check(wb, compute_dtype, codes, rows)
+    bf16 = compute_dtype == torch.bfloat16
+    if tiles is not None or (bf16 and rows.device.type != "cpu"):
+        _check_tiles(tiles, rows.device)
     if rows.device.type == "cpu":
         return sdf_value_plain(wb, code, xyz, compute_dtype)
     lib = build.load()
@@ -245,8 +303,8 @@ def sdf_value_fused(wb, code, xyz, compute_dtype=torch.float32):
     if n:
         w0, W, b = wb
         err = lib.mlp_sdf_value(codes.data_ptr(), rpc, rows.data_ptr(), n, w0.data_ptr(),
-                                W.data_ptr(), b.data_ptr(), int(compute_dtype == torch.bfloat16),
-                                sdf.data_ptr(), _stream())
+                                W.data_ptr(), b.data_ptr(), int(bf16),
+                                tiles.data_ptr() if bf16 else None, sdf.data_ptr(), _stream())
         _raise_on(lib, err, "mlp_sdf_value")
         LAUNCHES["mlp_sdf_value"] += 1
     return sdf.reshape(lead)

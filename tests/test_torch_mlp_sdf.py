@@ -218,7 +218,7 @@ def test_kernels_match_plain_on_card(dtype):
     wb = dec.packed(dt)
     s_k, g_k = mlp_sdf.sdf_and_input_jacobian_fused(wb, code, xyz, dt)
     s_p, g_p = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, dt)
-    v_k = mlp_sdf.sdf_value_fused(wb, code, xyz, dt)
+    v_k = mlp_sdf.sdf_value_fused(wb, code, xyz, dt, dec.value_tiles)
     torch.cuda.synchronize()
     sdf_atol = SDF_ATOL if dt == torch.float32 else BF16_SDF_ATOL
     np.testing.assert_allclose(s_k.cpu().numpy(), s_p.cpu().numpy(), atol=sdf_atol)
