@@ -12,7 +12,7 @@
 // stay L2-resident.  The products run on the tensor cores (wgmma), whose
 // bf16 rate (989 TFLOP/s dense) is the ceiling.
 //
-// Design (bring-up stage 1 of 3):
+// Design (bring-up stage 2 of 3):
 //   * A block owns BM = 64 rows, one wgmma M.  Its activations stay in
 //     shared memory as bf16 for the whole sweep, K-major in the 128-byte
 //     swizzled layout that a wgmma A descriptor reads (8 atoms of 64
@@ -23,9 +23,13 @@
 //   * The weights are packed on the host (`pack_value_tiles`) into the
 //     exact shared-memory order the B descriptor reads: a sequence of
 //     stages, each one 64-deep K chunk of a layer for all 512 outputs,
-//     K-major and 128-byte swizzled.  Here the warpgroup copies each
-//     stage's 256-column half into shared memory with plain 16-byte loads
-//     before its products.
+//     K-major and 128-byte swizzled.  A producer warp streams each
+//     stage's 256-column half through a ring of NSLOT shared-memory slots,
+//     one bulk asynchronous copy (cp.async.bulk) per slot, completed on the
+//     slot's "full" mbarrier; the consumer warpgroup waits on it, runs its
+//     products, and arrives on the slot's "empty" mbarrier once wgmma has
+//     read it.  The ring runs across layer boundaries, so the next layer's
+//     first weights arrive during this layer's epilogue.
 //   * The epilogue adds the bias, applies ReLU, rounds to bf16 (RNE) and
 //     writes the accumulator fragment into the swizzled layout; before
 //     layer 4, columns 445..511 take the bf16 input row (latent
@@ -47,15 +51,17 @@ constexpr int K0 = 128;                      // layer-0 depth: two 64-wide atoms
 constexpr int BM = 64;                       // rows per block (wgmma M)
 constexpr int KC = 64;                       // K per weight stage (one swizzle atom)
 constexpr int NH = 256;                      // outputs per pass (wgmma N)
-constexpr int NT = 128;                      // threads: one warpgroup
+constexpr int NCONS = 128;                   // consumer threads: one warpgroup
+constexpr int NT = NCONS + 32;               // and one producer warp
+constexpr int NSLOT = 2;                     // weight ring slots
 constexpr int ATOM_BYTES = BM * 128;         // 64 rows x 64 bf16
 constexpr int ACT_BYTES = (D / KC) * ATOM_BYTES;   // 64 KB
 constexpr int XIN_BYTES = (K0 / KC) * ATOM_BYTES;  // 16 KB
 constexpr int STAGE_BYTES = KC * D * 2;      // 64 KB: one K chunk, all outputs
 constexpr int HALF_BYTES = STAGE_BYTES / 2;  // one pass's 256 outputs
-constexpr int STAGE = 1;                     // bring-up stage of this kernel
-constexpr size_t SMEM =
-    1024 /* alignment slack */ + XIN_BYTES + 2 * ACT_BYTES + HALF_BYTES + D * sizeof(float);
+constexpr int STAGE = 2;                     // bring-up stage of this kernel
+constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + 2 * ACT_BYTES +
+                        NSLOT * HALF_BYTES + D * sizeof(float) + 2 * NSLOT * 8;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -215,6 +221,46 @@ __device__ __forceinline__ int stage_of(int layer) {
   return layer == 0 ? 0 : K0 / KC + (layer - 1) * (D / KC);
 }
 
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Arrive and expect `bytes` of asynchronous copies to complete on bar.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Waits for the completion of bar's phase of the given parity.  A lost
+// arrival would hang the card, so after about 2^32 cycles (2 s) it traps.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t ok;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (ok) return;
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+}
+// One bulk copy global -> shared, completed on bar as transaction bytes.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// Barrier of the consumer threads only (id 1; 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NCONS) : "memory");
+}
+
 __global__ void __launch_bounds__(NT, 1)
     mlp_sdf_value_tc_kernel(const float* __restrict__ code, int rows_per_code,
                             const float* __restrict__ xyz, int n,
@@ -227,31 +273,59 @@ __global__ void __launch_bounds__(NT, 1)
   uint8_t* a_in = xin;                 // this layer's input
   uint8_t* a_out = xin + XIN_BYTES;    // and output (two buffers from layer 1 on)
   uint8_t* a_free = a_out + ACT_BYTES;
-  uint8_t* wbuf = a_free + ACT_BYTES;
-  float* w8s = reinterpret_cast<float*>(wbuf + HALF_BYTES);
+  uint8_t* ring = a_free + ACT_BYTES;  // NSLOT weight slots
+  float* w8s = reinterpret_cast<float*>(ring + NSLOT * HALF_BYTES);
+  const uint32_t full = smem_u32(w8s + D);  // NSLOT mbarriers: slot filled
+  const uint32_t empty = full + 8 * NSLOT;  // NSLOT mbarriers: slot read
   const int t = threadIdx.x;
   const int base = blockIdx.x * BM;
 
-  load_input(xin, code, rows_per_code, xyz, n, base, t, NT);
-  const __nv_bfloat16* w8 = W + size_t(7) * D * D;  // layer 8: column 0 of W[7]
-  for (int k = t; k < D; k += NT) w8s[k] = __bfloat162float(w8[size_t(k) * D]);
-  fence_proxy_async();
+  if (t == 0) {
+    for (int s = 0; s < NSLOT; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, NCONS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
+
+  if (t >= NCONS) {
+    // ---- producer: one thread streams the weight pieces through the ring,
+    // in the order the consumer takes them (layer, pass, K chunk)
+    if (t == NCONS) {
+      int i = 0;
+      for (int layer = 0; layer < 8; ++layer)
+        for (int pass = 0; pass < 2; ++pass)
+          for (int kc = 0; kc < (layer == 0 ? K0 / KC : D / KC); ++kc, ++i) {
+            const int slot = i % NSLOT;
+            mbar_wait(empty + 8 * slot, ((i / NSLOT) & 1) ^ 1);
+            mbar_expect_tx(full + 8 * slot, HALF_BYTES);
+            bulk_copy(smem_u32(ring + slot * HALF_BYTES),
+                      tiles + size_t(stage_of(layer) + kc) * STAGE_BYTES + pass * HALF_BYTES,
+                      HALF_BYTES, full + 8 * slot);
+          }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup
+  load_input(xin, code, rows_per_code, xyz, n, base, t, NCONS);
+  const __nv_bfloat16* w8 = W + size_t(7) * D * D;  // layer 8: column 0 of W[7]
+  for (int k = t; k < D; k += NCONS) w8s[k] = __bfloat162float(w8[size_t(k) * D]);
+  fence_proxy_async();
+  consumers_sync();
 
   float d[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) d[i] = 0.f;
+  int i = 0;
   for (int layer = 0; layer < 8; ++layer) {
     const int nk = layer == 0 ? K0 / KC : D / KC;
     for (int pass = 0; pass < 2; ++pass) {
-      for (int kc = 0; kc < nk; ++kc) {
-        const uint4* src = reinterpret_cast<const uint4*>(
-            tiles + size_t(stage_of(layer) + kc) * STAGE_BYTES + pass * HALF_BYTES);
-        __syncthreads();  // the last products' reads of wbuf are done
-        for (int i = t; i < HALF_BYTES / 16; i += NT)
-          reinterpret_cast<uint4*>(wbuf)[i] = __ldg(src + i);
-        fence_proxy_async();
-        __syncthreads();
+      for (int kc = 0; kc < nk; ++kc, ++i) {
+        const int slot = i % NSLOT;
+        const uint8_t* wbuf = ring + slot * HALF_BYTES;
+        mbar_wait(full + 8 * slot, (i / NSLOT) & 1);
         wgmma_fence();
         fence_acc(d);
 #pragma unroll
@@ -261,6 +335,7 @@ __global__ void __launch_bounds__(NT, 1)
         wgmma_commit();
         wgmma_wait_all();
         fence_acc(d);
+        if ((t & 31) == 0) mbar_arrive(empty + 8 * slot);
       }
       if (layer == 3)
         epilogue<true>(d, a_out, xin, bias + layer * D, pass * NH, t);
@@ -268,12 +343,12 @@ __global__ void __launch_bounds__(NT, 1)
         epilogue<false>(d, a_out, xin, bias + layer * D, pass * NH, t);
     }
     fence_proxy_async();
-    __syncthreads();
+    consumers_sync();
     uint8_t* next_out = layer == 0 ? a_free : a_in;
     a_in = a_out;
     a_out = next_out;
   }
-  head(a_in, w8s, bias[8 * D], sdf, n, base, t, NT);
+  head(a_in, w8s, bias[8 * D], sdf, n, base, t, NCONS);
 }
 
 }  // namespace
