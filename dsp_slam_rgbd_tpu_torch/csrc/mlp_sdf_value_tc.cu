@@ -12,29 +12,33 @@
 // stay L2-resident.  The products run on the tensor cores (wgmma), whose
 // bf16 rate (989 TFLOP/s dense) is the ceiling.
 //
-// Design (bring-up stage 2 of 3):
-//   * A block owns BM = 64 rows, one wgmma M.  Its activations stay in
-//     shared memory as bf16 for the whole sweep, K-major in the 128-byte
-//     swizzled layout that a wgmma A descriptor reads (8 atoms of 64
-//     columns), in two buffers: layer i reads one and writes the other.
-//   * One warpgroup computes each layer in two passes of 256 output
-//     columns (m64n256k16, a 64 x 256 f32 accumulator, 128 registers a
-//     thread).
+// Design (bring-up stage 3 of 3):
+//   * A block owns BM = 64 rows, one wgmma M, and has three warpgroups:
+//     two consumers and one producer.  setmaxnreg moves registers from the
+//     producer (40 a thread) to the consumers (232).
+//   * Consumer warpgroup j computes outputs 256j..256j+255 of every layer
+//     for all 64 rows with wgmma m64n256k16: a 64 x 256 f32 accumulator,
+//     128 registers a thread.
+//   * The activations stay in shared memory as bf16 for the whole sweep,
+//     K-major in the 128-byte swizzled layout that a wgmma A descriptor
+//     reads (8 atoms of 64 columns), and are updated in place: both
+//     consumers finish their K loop (wgmma.wait_group 0), meet at a named
+//     barrier, and only then write their columns back.
 //   * The weights are packed on the host (`pack_value_tiles`) into the
 //     exact shared-memory order the B descriptor reads: a sequence of
 //     stages, each one 64-deep K chunk of a layer for all 512 outputs,
-//     K-major and 128-byte swizzled.  A producer warp streams each
-//     stage's 256-column half through a ring of NSLOT shared-memory slots,
-//     one bulk asynchronous copy (cp.async.bulk) per slot, completed on the
-//     slot's "full" mbarrier; the consumer warpgroup waits on it, runs its
-//     products, and arrives on the slot's "empty" mbarrier once wgmma has
-//     read it.  The ring runs across layer boundaries, so the next layer's
-//     first weights arrive during this layer's epilogue.
+//     K-major and 128-byte swizzled, consumer j reading half j.  One
+//     producer thread streams the stages through a ring of NSLOT slots,
+//     one bulk asynchronous copy (cp.async.bulk, no tensor map) per stage,
+//     completed on the slot's "full" mbarrier; each consumer warp arrives
+//     on the slot's "empty" mbarrier once its wgmma reads are done.  The
+//     ring runs across layer boundaries, so the next layer's first
+//     weights arrive during this layer's epilogue.
 //   * The epilogue adds the bias, applies ReLU, rounds to bf16 (RNE) and
 //     writes the accumulator fragment into the swizzled layout; before
-//     layer 4, columns 445..511 take the bf16 input row (latent
-//     re-injection).  Layer 8 has one real output column: a per-row dot
-//     product in f32, then tanh.
+//     layer 4, columns 445..511 (all in consumer 1's half) take the bf16
+//     input row (latent re-injection).  Layer 8 has one real output
+//     column: a per-row dot product in f32, then tanh.
 //   * Codes are read per row as code[row / rows_per_code]; the last tile
 //     is masked.
 #include <cuda_bf16.h>
@@ -50,18 +54,21 @@ constexpr int SPLIT = 445;                   // layer-3 real output width
 constexpr int K0 = 128;                      // layer-0 depth: two 64-wide atoms
 constexpr int BM = 64;                       // rows per block (wgmma M)
 constexpr int KC = 64;                       // K per weight stage (one swizzle atom)
-constexpr int NH = 256;                      // outputs per pass (wgmma N)
-constexpr int NCONS = 128;                   // consumer threads: one warpgroup
-constexpr int NT = NCONS + 32;               // and one producer warp
-constexpr int NSLOT = 2;                     // weight ring slots
+constexpr int NH = 256;                      // outputs per consumer (wgmma N)
+constexpr int NCONS = 256;                   // consumer threads: two warpgroups
+constexpr int NT = NCONS + 128;              // and one producer warpgroup
+constexpr int NSLOT = 2;                     // weight ring slots of one stage each
+constexpr int CONSUMER_REGS = 232;           // setmaxnreg: 2 x 128 x 232 + 128 x 40
+constexpr int PRODUCER_REGS = 40;            //   <= 65,536 registers of the SM
 constexpr int ATOM_BYTES = BM * 128;         // 64 rows x 64 bf16
 constexpr int ACT_BYTES = (D / KC) * ATOM_BYTES;   // 64 KB
 constexpr int XIN_BYTES = (K0 / KC) * ATOM_BYTES;  // 16 KB
 constexpr int STAGE_BYTES = KC * D * 2;      // 64 KB: one K chunk, all outputs
-constexpr int HALF_BYTES = STAGE_BYTES / 2;  // one pass's 256 outputs
-constexpr int STAGE = 2;                     // bring-up stage of this kernel
-constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + 2 * ACT_BYTES +
-                        NSLOT * HALF_BYTES + D * sizeof(float) + 2 * NSLOT * 8;
+constexpr int HALF_BYTES = STAGE_BYTES / 2;  // one consumer's 256 outputs
+constexpr int N_STAGES = K0 / KC + 7 * (D / KC);   // 58 stages: w0, W[0..6]
+constexpr int STAGE = 3;                     // bring-up stage of this kernel
+constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES +
+                        NSLOT * STAGE_BYTES + D * sizeof(float) + 2 * NSLOT * 8;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -167,28 +174,35 @@ __device__ void load_input(uint8_t* xin, const float* __restrict__ code, int row
 }
 
 // Accumulator fragment of one warpgroup (t = thread in it) for output
-// columns c0..c0+255 -> bias, ReLU, bf16, into the swizzled buffer out.
-// Fragment of m64nNk16: d[4j + 2h + e] is row 16 warp + lane/4 + 8h,
-// column 8j + 2 (lane % 4) + e.
+// columns c0..c0+255 (c0 % 64 == 0) -> bias, ReLU, bf16, into the swizzled
+// buffer out.  Fragment of m64nNk16: d[4j + 2h + e] is row r0 + 8h with
+// r0 = 16 warp + lane / 4, column c0 + 8j + 2 (lane % 4) + e, so both rows
+// share one swizzle and column block j sits in atom j / 8, chunk j % 8.
 template <bool REINJECT>
 __device__ __forceinline__ void epilogue(const float (&d)[128], uint8_t* out, const uint8_t* xin,
                                          const float* __restrict__ bias, int c0, int t) {
+  // Addresses are recomputed per call: hoisted out of the layer loop, they
+  // would stay live beside the 128 accumulators and spill.
+  asm volatile("" : "+r"(t), "+l"(out), "+l"(xin), "+l"(bias));
   const int lane = t & 31;
   const int r0 = 16 * (t >> 5) + (lane >> 2);
+  const int sw = r0 & 7;
+  uint8_t* row = out + (c0 >> 6) * ATOM_BYTES + r0 * 128 + (lane & 3) * 4;
+  const float* bc = bias + c0 + 2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
-    const int c = c0 + 8 * j + 2 * (lane & 3);
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + c));
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(bc + 8 * j));
+    uint8_t* p = row + (j >> 3) * ATOM_BYTES + (((j & 7) ^ sw) << 4);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
       float v0 = fmaxf(d[4 * j + 2 * h] + bb.x, 0.f);
       float v1 = fmaxf(d[4 * j + 2 * h + 1] + bb.y, 0.f);
+      const int c = c0 + 8 * j + 2 * (lane & 3);
       if (REINJECT && c + 1 >= SPLIT) {  // latent re-injection
-        if (c >= SPLIT) v0 = bf16_at(xin, r, c - SPLIT);
-        v1 = bf16_at(xin, r, c + 1 - SPLIT);
+        if (c >= SPLIT) v0 = bf16_at(xin, r0 + 8 * h, c - SPLIT);
+        v1 = bf16_at(xin, r0 + 8 * h, c + 1 - SPLIT);
       }
-      *reinterpret_cast<uint32_t*>(out + sw_off(r, c)) = pack_bf16x2(v0, v1);
+      *reinterpret_cast<uint32_t*>(p + h * 8 * 128) = pack_bf16x2(v0, v1);
     }
   }
 }
@@ -216,11 +230,6 @@ __device__ void head(const uint8_t* act, const float* w8s, float b8, float* __re
   }
 }
 
-// First stage of layer l in the packed sequence (layer 0 has K0 / KC).
-__device__ __forceinline__ int stage_of(int layer) {
-  return layer == 0 ? 0 : K0 / KC + (layer - 1) * (D / KC);
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
@@ -232,11 +241,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
-// Waits for the completion of bar's phase of the given parity.  A lost
-// arrival would hang the card, so after about 2^32 cycles (2 s) it traps.
+// Waits for the completion of bar's phase of the given parity.  With
+// WATCHDOG (the producer's waits), a lost arrival traps after 2^26 polls,
+// each of which may suspend the thread for a while, instead of hanging the
+// card; the consumers' waits go without it, which costs them registers.
+template <bool WATCHDOG>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  for (;;) {
+  for (uint32_t polls = 0;; ++polls) {
     uint32_t ok;
     asm volatile(
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -245,7 +256,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
     if (ok) return;
-    if (clock64() - t0 > (1ll << 32)) __trap();
+    if (WATCHDOG && polls == (1u << 26)) __trap();
   }
 }
 // One bulk copy global -> shared, completed on bar as transaction bytes.
@@ -269,14 +280,12 @@ __global__ void __launch_bounds__(NT, 1)
                             const float* __restrict__ bias, float* __restrict__ sdf) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* xin = sm;
-  uint8_t* a_in = xin;                 // this layer's input
-  uint8_t* a_out = xin + XIN_BYTES;    // and output (two buffers from layer 1 on)
-  uint8_t* a_free = a_out + ACT_BYTES;
-  uint8_t* ring = a_free + ACT_BYTES;  // NSLOT weight slots
-  float* w8s = reinterpret_cast<float*>(ring + NSLOT * HALF_BYTES);
-  const uint32_t full = smem_u32(w8s + D);  // NSLOT mbarriers: slot filled
-  const uint32_t empty = full + 8 * NSLOT;  // NSLOT mbarriers: slot read
+  uint8_t* xin = sm;                   // input rows (layer 0's A)
+  uint8_t* act = xin + XIN_BYTES;      // activations, updated in place
+  uint8_t* ring = act + ACT_BYTES;     // NSLOT weight stages
+  float* w8s = reinterpret_cast<float*>(ring + NSLOT * STAGE_BYTES);
+  const uint32_t full = smem_u32(w8s + D);  // NSLOT mbarriers: stage arrived
+  const uint32_t empty = full + 8 * NSLOT;  // NSLOT mbarriers: stage read
   const int t = threadIdx.x;
   const int base = blockIdx.x * BM;
 
@@ -289,66 +298,65 @@ __global__ void __launch_bounds__(NT, 1)
   }
   __syncthreads();
 
-  if (t >= NCONS) {
-    // ---- producer: one thread streams the weight pieces through the ring,
-    // in the order the consumer takes them (layer, pass, K chunk)
+  // warpgroup index, uniform across each warp, so that ptxas can apply
+  // setmaxnreg to each role's code
+  const int role = __shfl_sync(0xffffffffu, t / 128, 0);
+  if (role == NCONS / 128) {
+    // ---- producer warpgroup: gives up its registers; one thread streams
+    // the weight stages through the ring, one bulk copy each
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (t == NCONS) {
-      int i = 0;
-      for (int layer = 0; layer < 8; ++layer)
-        for (int pass = 0; pass < 2; ++pass)
-          for (int kc = 0; kc < (layer == 0 ? K0 / KC : D / KC); ++kc, ++i) {
-            const int slot = i % NSLOT;
-            mbar_wait(empty + 8 * slot, ((i / NSLOT) & 1) ^ 1);
-            mbar_expect_tx(full + 8 * slot, HALF_BYTES);
-            bulk_copy(smem_u32(ring + slot * HALF_BYTES),
-                      tiles + size_t(stage_of(layer) + kc) * STAGE_BYTES + pass * HALF_BYTES,
-                      HALF_BYTES, full + 8 * slot);
-          }
+      for (int s = 0; s < N_STAGES; ++s) {
+        const int slot = s % NSLOT;
+        mbar_wait<true>(empty + 8 * slot, ((s / NSLOT) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * slot, STAGE_BYTES);
+        bulk_copy(smem_u32(ring + slot * STAGE_BYTES), tiles + size_t(s) * STAGE_BYTES,
+                  STAGE_BYTES, full + 8 * slot);
+      }
     }
-    return;
-  }
+  } else {
+    // ---- two consumer warpgroups: warpgroup j computes outputs
+    // 256j..256j+255 of every layer for all 64 rows
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int j = t / 128, tw = t % 128;
+    load_input(xin, code, rows_per_code, xyz, n, base, t, NCONS);
+    const __nv_bfloat16* w8 = W + size_t(7) * D * D;  // layer 8: column 0 of W[7]
+    for (int k = t; k < D; k += NCONS) w8s[k] = __bfloat162float(w8[size_t(k) * D]);
+    fence_proxy_async();
+    consumers_sync();
 
-  // ---- consumer warpgroup
-  load_input(xin, code, rows_per_code, xyz, n, base, t, NCONS);
-  const __nv_bfloat16* w8 = W + size_t(7) * D * D;  // layer 8: column 0 of W[7]
-  for (int k = t; k < D; k += NCONS) w8s[k] = __bfloat162float(w8[size_t(k) * D]);
-  fence_proxy_async();
-  consumers_sync();
-
-  float d[128];
+    float d[128];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) d[i] = 0.f;
-  int i = 0;
-  for (int layer = 0; layer < 8; ++layer) {
-    const int nk = layer == 0 ? K0 / KC : D / KC;
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int kc = 0; kc < nk; ++kc, ++i) {
-        const int slot = i % NSLOT;
-        const uint8_t* wbuf = ring + slot * HALF_BYTES;
-        mbar_wait(full + 8 * slot, (i / NSLOT) & 1);
+    for (int i = 0; i < 128; ++i) d[i] = 0.f;
+    int s = 0;
+    for (int layer = 0; layer < 8; ++layer) {
+      const uint8_t* a = layer == 0 ? xin : act;
+      const int nk = layer == 0 ? K0 / KC : D / KC;
+      for (int kc = 0; kc < nk; ++kc, ++s) {
+        const int slot = s % NSLOT;
+        const uint8_t* b = ring + slot * STAGE_BYTES + j * HALF_BYTES;
+        mbar_wait<false>(full + 8 * slot, (s / NSLOT) & 1);
         wgmma_fence();
         fence_acc(d);
 #pragma unroll
         for (int q = 0; q < KC / 16; ++q)
-          wgmma_m64n256k16(d, desc_sw128(smem_u32(a_in + kc * ATOM_BYTES + q * 32)),
-                           desc_sw128(smem_u32(wbuf + q * 32)), kc > 0 || q > 0);
+          wgmma_m64n256k16(d, desc_sw128(smem_u32(a + kc * ATOM_BYTES + q * 32)),
+                           desc_sw128(smem_u32(b + q * 32)), kc > 0 || q > 0);
         wgmma_commit();
         wgmma_wait_all();
         fence_acc(d);
         if ((t & 31) == 0) mbar_arrive(empty + 8 * slot);
       }
+      consumers_sync();  // both warpgroups' reads of act are done
       if (layer == 3)
-        epilogue<true>(d, a_out, xin, bias + layer * D, pass * NH, t);
+        epilogue<true>(d, act, xin, bias + layer * D, j * NH, tw);
       else
-        epilogue<false>(d, a_out, xin, bias + layer * D, pass * NH, t);
+        epilogue<false>(d, act, xin, bias + layer * D, j * NH, tw);
+      fence_proxy_async();
+      consumers_sync();
     }
-    fence_proxy_async();
-    consumers_sync();
-    uint8_t* next_out = layer == 0 ? a_free : a_in;
-    a_in = a_out;
-    a_out = next_out;
+    head(act, w8s, bias[8 * D], sdf, n, base, t, NCONS);
   }
-  head(a_in, w8s, bias[8 * D], sdf, n, base, t, NCONS);
 }
 
 }  // namespace
