@@ -58,7 +58,7 @@ constexpr int NH = 256;                      // outputs per consumer (wgmma N)
 constexpr int NCONS = 256;                   // consumer threads: two warpgroups
 constexpr int NT = NCONS + 128;              // and one producer warpgroup
 constexpr int NSLOT = 2;                     // weight ring slots of one stage each
-constexpr int CLUSTER = 2;                   // blocks sharing each weight stage
+constexpr int CLUSTER = 4;                   // blocks sharing each weight stage
 constexpr int CONSUMER_REGS = 232;           // setmaxnreg: 2 x 128 x 232 + 128 x 40
 constexpr int PRODUCER_REGS = 40;            //   <= 65,536 registers of the SM
 constexpr int ATOM_BYTES = BM * 128;         // 64 rows x 64 bf16
