@@ -58,7 +58,6 @@ constexpr int NH = 256;                      // outputs per consumer (wgmma N)
 constexpr int NCONS = 256;                   // consumer threads: two warpgroups
 constexpr int NT = NCONS + 128;              // and one producer warpgroup
 constexpr int NSLOT = 2;                     // weight ring slots of one stage each
-constexpr int CLUSTER = 4;                   // blocks sharing each weight stage
 constexpr int CONSUMER_REGS = 232;           // setmaxnreg: 2 x 128 x 232 + 128 x 40
 constexpr int PRODUCER_REGS = 40;            //   <= 65,536 registers of the SM
 constexpr int ATOM_BYTES = BM * 128;         // 64 rows x 64 bf16
@@ -234,6 +233,9 @@ __device__ void head(const uint8_t* act, const float* w8s, float b8, float* __re
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
 // Arrive and expect `bytes` of asynchronous copies to complete on bar.
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
@@ -257,35 +259,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (WATCHDOG && polls == (1u << 26)) __trap();
   }
 }
-// One bulk copy global -> shared memory of every block of the cluster, at
-// the same offset dst in each, completed on the mbarrier at offset bar of
-// each as transaction bytes.
-__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst, const void* src,
-                                                    uint32_t bytes, uint32_t bar) {
+// One bulk copy global -> shared, completed on bar as transaction bytes.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
-      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "h"(uint16_t((1u << CLUSTER) - 1))
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
-}
-// Arrive on the mbarrier at offset bar in block `rank` of the cluster.
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
-  asm volatile(
-      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
-      "r"(rank)
-      : "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
-                   : "memory");
 }
 // Barrier of the consumer threads only (id 1; 0 is __syncthreads).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NCONS) : "memory");
 }
 
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(NT, 1)
     mlp_sdf_value_tc_kernel(const float* __restrict__ code, int rows_per_code,
                             const float* __restrict__ xyz, int n,
                             const uint8_t* __restrict__ tiles,
@@ -301,40 +288,31 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
   const uint32_t empty = full + 8 * NSLOT;  // NSLOT mbarriers: stage read
   const int t = threadIdx.x;
   const int base = blockIdx.x * BM;
-  uint32_t rank;  // of this block in its cluster
-  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
 
   if (t == 0) {
     for (int s = 0; s < NSLOT; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, CLUSTER * NCONS / 32);  // every consumer warp of the cluster
+      mbar_init(empty + 8 * s, NCONS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cluster_sync();  // every block's barriers are initialised before any copy or arrival
+  __syncthreads();
 
   // warpgroup index, uniform across each warp, so that ptxas can apply
   // setmaxnreg to each role's code
   const int role = __shfl_sync(0xffffffffu, t / 128, 0);
   if (role == NCONS / 128) {
     // ---- producer warpgroup: gives up its registers; one thread streams
-    // this block's share of each weight stage into the ring of every block
-    // of the cluster, once all of them have released the slot
+    // the weight stages through the ring, one bulk copy each
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (t == NCONS) {
-      const uint32_t part = rank * (STAGE_BYTES / CLUSTER);
       for (int s = 0; s < N_STAGES; ++s) {
         const int slot = s % NSLOT;
         mbar_wait<true>(empty + 8 * slot, ((s / NSLOT) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * slot, STAGE_BYTES);  // every block's share lands here
-        bulk_copy_multicast(smem_u32(ring + slot * STAGE_BYTES) + part,
-                            tiles + size_t(s) * STAGE_BYTES + part, STAGE_BYTES / CLUSTER,
-                            full + 8 * slot);
+        mbar_expect_tx(full + 8 * slot, STAGE_BYTES);
+        bulk_copy(smem_u32(ring + slot * STAGE_BYTES), tiles + size_t(s) * STAGE_BYTES,
+                  STAGE_BYTES, full + 8 * slot);
       }
-      // the other blocks' consumers arrive on this block's barriers: stay
-      // until the last stages are released everywhere
-      for (int s = N_STAGES; s < N_STAGES + NSLOT; ++s)
-        mbar_wait<true>(empty + 8 * (s % NSLOT), ((s / NSLOT) & 1) ^ 1);
     }
   } else {
     // ---- two consumer warpgroups: warpgroup j computes outputs
@@ -367,8 +345,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
         wgmma_commit();
         wgmma_wait_all();
         fence_acc(d);
-        if ((t & 31) == 0)
-          for (uint32_t r = 0; r < CLUSTER; ++r) mbar_arrive_cluster(empty + 8 * slot, r);
+        if ((t & 31) == 0) mbar_arrive(empty + 8 * slot);
       }
       consumers_sync();  // both warpgroups' reads of act are done
       if (layer == 3)
@@ -393,8 +370,7 @@ int mlp_sdf_value_tc(const void* code, int rows_per_code, const void* xyz, int n
   cudaError_t err = cudaFuncSetAttribute(
       mlp_sdf_value_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
   if (err != cudaSuccess) return int(err);
-  const int blocks = (n + BM * CLUSTER - 1) / (BM * CLUSTER) * CLUSTER;  // whole clusters
-  mlp_sdf_value_tc_kernel<<<blocks, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(
+  mlp_sdf_value_tc_kernel<<<(n + BM - 1) / BM, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(code), rows_per_code, static_cast<const float*>(xyz), n,
       static_cast<const uint8_t*>(tiles), static_cast<const __nv_bfloat16*>(W),
       static_cast<const float*>(b), static_cast<float*>(sdf));
@@ -402,7 +378,7 @@ int mlp_sdf_value_tc(const void* code, int rows_per_code, const void* xyz, int n
 }
 
 // Shared memory per block, threads per block, rows per block, bring-up
-// stage, registers per thread, local (spill) bytes and blocks per cluster.
+// stage, registers per thread and local (spill) bytes of the kernel.
 extern "C" int mlp_sdf_value_tc_config(int* out) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, mlp_sdf_value_tc_kernel);
@@ -413,6 +389,5 @@ extern "C" int mlp_sdf_value_tc_config(int* out) {
   out[3] = STAGE;
   out[4] = attr.numRegs;
   out[5] = int(attr.localSizeBytes);
-  out[6] = CLUSTER;
   return 0;
 }

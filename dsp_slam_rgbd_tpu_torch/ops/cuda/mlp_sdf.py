@@ -173,10 +173,9 @@ def _check_tiles(tiles, dev) -> None:
 def value_kernel_config() -> dict:
     """The bf16 value kernel's launch figures, read from the built library."""
     lib = build.load()
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 6)()
     _raise_on(lib, lib.mlp_sdf_value_tc_config(out), "mlp_sdf_value_tc_config")
-    keys = ("smem_bytes", "threads", "rows_per_block", "stage", "registers", "local_bytes",
-            "cluster")
+    keys = ("smem_bytes", "threads", "rows_per_block", "stage", "registers", "local_bytes")
     return dict(zip(keys, out))
 
 
