@@ -87,7 +87,6 @@ class DeepSDFDecoder(nn.Module):
             self.register_buffer(f"W{i}", W.contiguous())
             self.register_buffer(f"b{i}", b.contiguous())
         self._packed: dict = {}
-        self.value_tiles = None
         self._pack()
 
     @property
