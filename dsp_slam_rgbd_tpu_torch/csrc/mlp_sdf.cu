@@ -1,18 +1,20 @@
-// Fused DeepSDF decoder kernels for Hopper (sm_90a): the 9-layer cars_64
-// MLP forward, and forward + input Jacobian, over rows of [code 64 | xyz 3].
+// Fused DeepSDF decoder kernels for Hopper (sm_90a) in f32, the parity
+// mode: the 9-layer cars_64 MLP forward, and forward + input Jacobian, over
+// rows of [code 64 | xyz 3].  The bf16 (production) mode runs on the tensor
+// cores in mlp_sdf_value_tc.cu and mlp_sdf_jacobian_tc.cu; this file also
+// holds the C interface that routes a launch to either.
 //
-// Replaces the two Pallas TPU kernels of dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py:
+// Replaces, for f32 operands, the two Pallas TPU kernels of
+// dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py:
 //   mlp_sdf_jacobian  <- _make_kernel        (value + d sdf / d[code, xyz])
-//   mlp_sdf_value     <- _make_value_kernel  (value only; f32 here, bf16 on
-//                                             the tensor cores in
-//                                             mlp_sdf_value_tc.cu)
+//   mlp_sdf_value     <- _make_value_kernel  (value only)
 //
 // What bounds it on this card: operations.  One row costs 3.67 MFLOP
 // forward (7.34 MFLOP with the Jacobian) against 12 input bytes, and the
-// 4.2 MB (bf16) / 8.4 MB (f32) weight stack is read from device memory
-// once and from L2 after that, far above the card's ~295 FLOP/byte ridge.
-// This version multiplies on the f32 FMA pipes, so their rate (67 TFLOP/s
-// on an H100 SXM), not the tensor cores', is the ceiling it can reach.
+// 8.4 MB f32 weight stack is read from device memory once and from L2
+// after that, far above the card's ~295 FLOP/byte ridge.  Tensor cores
+// have no full-f32 product, so the f32 FMA pipes' rate (67 TFLOP/s on an
+// H100 SXM) is the ceiling.
 //
 // What the design does about it:
 //   * The TPU kept the whole weight stack resident in VMEM.  A block here
@@ -31,11 +33,8 @@
 //   * g W^T reads rows of W that are contiguous in the reduced "out"
 //     index: the stager reads those row segments and writes them
 //     transposed into shared memory.
-//   * Products are f32 FMA.  In bf16 mode both operands are rounded to
-//     bf16 (round-to-nearest-even) before the product, which an f32 FMA
-//     then computes exactly, with f32 accumulation, bias and ReLU: the
-//     rounding points of the Pallas kernel's `_forward` and `dot_t`.
-//     Tensor-core (mma/wgmma) paths are later work.
+//   * Products are f32 FMA with f32 accumulation, bias and ReLU, as the
+//     Pallas kernel's `_forward` and `dot_t` at HIGHEST precision.
 //   * Layer 8 has one real output column, so its forward is a per-row
 //     dot product and its backward a rank-1 product, not a padded
 //     512 x 512 GEMM.
@@ -43,7 +42,6 @@
 //     covers a batch of objects (rows_per_code = points per object), a
 //     shared code (rows_per_code = n) or per-row codes (rows_per_code = 1),
 //     without materialising packed input rows.  The last tile is masked.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,61 +72,18 @@ __device__ __forceinline__ int tile_col(int cg, int j, int nout) {
   return j < 4 ? cg * 4 + j : nout / 2 + cg * 4 + (j - 4);
 }
 
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
-// 16 bytes of weights widened to floats.
-template <typename WT>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void widen(const uint4 v, float* o) {
-    o[0] = __uint_as_float(v.x);
-    o[1] = __uint_as_float(v.y);
-    o[2] = __uint_as_float(v.z);
-    o[3] = __uint_as_float(v.w);
-  }
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void widen(const uint4 v, float* o) {
-    // a bf16 is the upper half of the f32 with the same value
-    o[0] = __uint_as_float(v.x << 16);
-    o[1] = __uint_as_float(v.x & 0xffff0000u);
-    o[2] = __uint_as_float(v.y << 16);
-    o[3] = __uint_as_float(v.y & 0xffff0000u);
-    o[4] = __uint_as_float(v.z << 16);
-    o[5] = __uint_as_float(v.z & 0xffff0000u);
-    o[6] = __uint_as_float(v.w << 16);
-    o[7] = __uint_as_float(v.w & 0xffff0000u);
-  }
-};
-
-__device__ __forceinline__ float weight_at(const float* w, int i) { return w[i]; }
-__device__ __forceinline__ float weight_at(const __nv_bfloat16* w, int i) {
-  return __bfloat162float(w[i]);
-}
-
 // acc[m][j] = sum_k A[k][row0 + m] * B[k][col(j)] over k < K, where A is
 // the block's k-major shared operand (leading dimension BM) and B is
 //   TRANS = false:  B[k][n] = W[k * D + n]    (forward, x W)
 //   TRANS = true:   B[k][n] = W[n * D + k]    (backward, g W^T)
 // streamed through Ws in chunks of KC rows.  Starts and ends with a
 // barrier-free Ws; the caller syncs before overwriting A.
-template <int NOUT, bool TRANS, typename WT>
+template <int NOUT, bool TRANS>
 __device__ __forceinline__ void gemm(const float* __restrict__ A, int K,
-                                     const WT* __restrict__ W, float* Ws,
+                                     const float* __restrict__ W, float* Ws,
                                      float (&acc)[Tile<NOUT>::TM][8]) {
   using T = Tile<NOUT>;
-  constexpr int VN = Vec<WT>::N;
+  constexpr int VN = 4;                            // floats per 16-byte vector
   constexpr int NVEC = KC * NOUT / VN;             // vectors per chunk
   constexpr int PER = (NVEC + NT - 1) / NT;        // per thread
   constexpr int VPR = KC / VN > 0 ? KC / VN : 1;   // TRANS: vectors per W row segment
@@ -148,7 +103,7 @@ __device__ __forceinline__ void gemm(const float* __restrict__ A, int K,
     for (int p = 0; p < PER; ++p) {
       const int v = t + p * NT;
       if (v < NVEC) {
-        const WT* src;
+        const float* src;
         if constexpr (TRANS) {
           src = W + (v / VPR) * D + k0 + (v % VPR) * VN;
         } else {
@@ -164,8 +119,8 @@ __device__ __forceinline__ void gemm(const float* __restrict__ A, int K,
     for (int p = 0; p < PER; ++p) {
       const int v = t + p * NT;
       if (v < NVEC) {
-        float f[VN];
-        Vec<WT>::widen(pre[p], f);
+        const float f[VN] = {__uint_as_float(pre[p].x), __uint_as_float(pre[p].y),
+                             __uint_as_float(pre[p].z), __uint_as_float(pre[p].w)};
         if constexpr (TRANS) {
           const int n = v / VPR, kk = (v % VPR) * VN;
 #pragma unroll
@@ -235,11 +190,11 @@ __device__ __forceinline__ int mask_word(int row, int j, int cg) {
   return ((row * 8 + j) * 2 + cg / 32);
 }
 
-template <typename WT, bool BF16, bool JAC>
+template <bool JAC>
 __global__ void __launch_bounds__(NT, 2)
     mlp_sdf_kernel(const float* __restrict__ code, int rows_per_code,
                    const float* __restrict__ xyz, int n,
-                   const WT* __restrict__ w0, const WT* __restrict__ W,
+                   const float* __restrict__ w0, const float* __restrict__ W,
                    const float* __restrict__ bias, float* __restrict__ sdf_out,
                    float* __restrict__ grad_out) {
   extern __shared__ float4 smem4[];
@@ -257,7 +212,7 @@ __global__ void __launch_bounds__(NT, 2)
   const int row0 = (t / T::CG) * T::TM;
   const int base = blockIdx.x * BM;
 
-  // ---- input rows [code | xyz | 0], k-major, rounded to the operand type
+  // ---- input rows [code | xyz | 0], k-major
   for (int e = t; e < K0 * BM; e += NT) {
     const int k = e / BM, r = e % BM, g = base + r;
     float v = 0.f;
@@ -265,16 +220,16 @@ __global__ void __launch_bounds__(NT, 2)
       if (k < CODE) v = code[(g / rows_per_code) * CODE + k];
       else if (k < IN_DIM) v = xyz[g * 3 + (k - CODE)];
     }
-    xin[e] = rnd<BF16>(v);
+    xin[e] = v;
   }
 
   // ---- forward: layers 0..7 with ReLU, re-injection into layer 4's input
   float acc[T::TM][8];
   for (int layer = 0; layer < 8; ++layer) {
     if (layer == 0) {
-      gemm<D, false, WT>(xin, K0, w0, ws, acc);
+      gemm<D, false>(xin, K0, w0, ws, acc);
     } else {
-      gemm<D, false, WT>(act, D, W + size_t(layer - 1) * D * D, ws, acc);
+      gemm<D, false>(act, D, W + size_t(layer - 1) * D * D, ws, acc);
     }
     __syncthreads();  // every read of act is done
 #pragma unroll
@@ -286,7 +241,7 @@ __global__ void __launch_bounds__(NT, 2)
         const float p = acc[m][j] + bias[layer * D + c];
         float h = p > 0.f ? p : 0.f;
         if (layer == 3 && c >= SPLIT) h = xin[(c - SPLIT) * BM + r];  // latent re-injection
-        act[c * BM + r] = rnd<BF16>(h);
+        act[c * BM + r] = h;
         if constexpr (JAC) {
           const uint32_t word = __ballot_sync(0xffffffffu, p > 0.f);
           if (lane == 0) masks[layer * N_MASK_WORDS + mask_word(r, j, cg)] = word;
@@ -297,10 +252,10 @@ __global__ void __launch_bounds__(NT, 2)
   }
 
   // ---- layer 8: one real output column -> per-row dot product, tanh
-  const WT* w8 = W + size_t(7) * D * D;  // w8[k * D + 0]
+  const float* w8 = W + size_t(7) * D * D;  // w8[k * D + 0]
   float w8c[D / 32];
 #pragma unroll
-  for (int q = 0; q < D / 32; ++q) w8c[q] = weight_at(w8, (lane + 32 * q) * D);
+  for (int q = 0; q < D / 32; ++q) w8c[q] = w8[(lane + 32 * q) * D];
   for (int r = warp; r < BM; r += NT / 32) {
     float s = 0.f;
 #pragma unroll
@@ -321,19 +276,19 @@ __global__ void __launch_bounds__(NT, 2)
   for (int m = 0; m < T::TM; ++m) {
     const int r = row0 + m;
     const float s = sdf_s[r];
-    const float g = rnd<BF16>(1.f - s * s);
+    const float g = 1.f - s * s;
     const uint32_t* mk = masks + 7 * N_MASK_WORDS;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = tile_col(cg, j, D);
       const bool on = (mk[mask_word(r, j, cg)] >> lane) & 1u;
-      act[c * BM + r] = on ? rnd<BF16>(g * weight_at(w8, c * D)) : 0.f;
+      act[c * BM + r] = on ? g * w8[c * D] : 0.f;
     }
   }
 
   // ---- steps 7..1: gin = g W_i^T, masked by layer i-1's ReLU
   for (int layer = 7; layer >= 1; --layer) {
-    gemm<D, true, WT>(act, D, W + size_t(layer - 1) * D * D, ws, acc);
+    gemm<D, true>(act, D, W + size_t(layer - 1) * D * D, ws, acc);
     __syncthreads();
     const uint32_t* mk = masks + (layer - 1) * N_MASK_WORDS;
 #pragma unroll
@@ -349,7 +304,7 @@ __global__ void __launch_bounds__(NT, 2)
           g = 0.f;
         }
         const bool on = (mk[mask_word(r, j, cg)] >> lane) & 1u;
-        act[c * BM + r] = on ? rnd<BF16>(g) : 0.f;
+        act[c * BM + r] = on ? g : 0.f;
       }
     }
   }
@@ -357,7 +312,7 @@ __global__ void __launch_bounds__(NT, 2)
   // ---- layer 0: d/d input = g W0^T + re-injection gradient
   using T0 = Tile<128>;
   float acc0[T0::TM][8];
-  gemm<128, true, WT>(act, D, w0, ws, acc0);
+  gemm<128, true>(act, D, w0, ws, acc0);
   const int cg0 = t % T0::CG;
   const int r00 = (t / T0::CG) * T0::TM;
 #pragma unroll
@@ -373,11 +328,11 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-template <typename WT, bool BF16, bool JAC>
+template <bool JAC>
 int launch(const void* code, int rows_per_code, const void* xyz, int n,
            const void* w0, const void* W, const void* b, void* sdf, void* grad,
            void* stream) {
-  auto kern = mlp_sdf_kernel<WT, BF16, JAC>;
+  auto kern = mlp_sdf_kernel<JAC>;
   const size_t smem = JAC ? SMEM_JAC : SMEM_VALUE;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -385,31 +340,36 @@ int launch(const void* code, int rows_per_code, const void* xyz, int n,
   const int blocks = (n + BM - 1) / BM;
   kern<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(code), rows_per_code,
-      static_cast<const float*>(xyz), n, static_cast<const WT*>(w0),
-      static_cast<const WT*>(W), static_cast<const float*>(b),
+      static_cast<const float*>(xyz), n, static_cast<const float*>(w0),
+      static_cast<const float*>(W), static_cast<const float*>(b),
       static_cast<float*>(sdf), static_cast<float*>(grad));
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// The bf16 value pass, on the tensor cores (mlp_sdf_value_tc.cu).
+// The bf16 kernels, on the tensor cores (mlp_sdf_value_tc.cu,
+// mlp_sdf_jacobian_tc.cu).
 int mlp_sdf_value_tc(const void* code, int rows_per_code, const void* xyz, int n,
                      const void* tiles, const void* W, const void* b, void* sdf, void* stream);
+int mlp_sdf_jacobian_tc(const void* code, int rows_per_code, const void* xyz, int n,
+                        const void* fwd, const void* bwd, const void* W, const void* b,
+                        void* sdf, void* grad, void* relu, void* stream);
 
 // C interface, bound with ctypes.  code (C, 64) f32, row g uses code
 // row g / rows_per_code; xyz (n, 3) f32; w0 (128, 512), W (8, 512, 512)
 // in f32 (bf16 = 0) or bf16 (bf16 = 1); b (9, 512) f32.  Outputs
 // sdf (n,) f32 and, for the Jacobian, grad (n, 67) f32.  Returns the
-// launch's cudaError_t.  n > 0.  The bf16 value pass reads its weights
-// from tiles, the stage sequence of pack_value_tiles(w0, W), and only
-// layer 8's column from W; in f32 tiles is unused.
+// launch's cudaError_t.  n > 0.  In bf16 the kernels read their weights
+// from the host-packed streams, pack_value_tiles(w0, W) (tiles, fwd) and
+// pack_backward_tiles(w0, W) (bwd), and only layer 8's column from W, and
+// the Jacobian can report the ReLU masks it took into relu ((n, 8, 512)
+// uint8, or null); in f32 the streams and relu are unused.
 extern "C" int mlp_sdf_value(const void* code, int rows_per_code, const void* xyz,
                              int n, const void* w0, const void* W, const void* b,
                              int bf16, const void* tiles, void* sdf, void* stream) {
   return bf16 ? mlp_sdf_value_tc(code, rows_per_code, xyz, n, tiles, W, b, sdf, stream)
-              : launch<float, false, false>(code, rows_per_code, xyz, n, w0, W, b,
-                                            sdf, nullptr, stream);
+              : launch<false>(code, rows_per_code, xyz, n, w0, W, b, sdf, nullptr, stream);
 }
 
 extern "C" const char* mlp_sdf_error_string(int err) {
@@ -418,9 +378,9 @@ extern "C" const char* mlp_sdf_error_string(int err) {
 
 extern "C" int mlp_sdf_jacobian(const void* code, int rows_per_code, const void* xyz,
                                 int n, const void* w0, const void* W, const void* b,
-                                int bf16, void* sdf, void* grad, void* stream) {
-  return bf16 ? launch<__nv_bfloat16, true, true>(code, rows_per_code, xyz, n, w0,
-                                                  W, b, sdf, grad, stream)
-              : launch<float, false, true>(code, rows_per_code, xyz, n, w0, W, b,
-                                           sdf, grad, stream);
+                                int bf16, const void* fwd, const void* bwd, void* sdf,
+                                void* grad, void* relu, void* stream) {
+  return bf16 ? mlp_sdf_jacobian_tc(code, rows_per_code, xyz, n, fwd, bwd, W, b, sdf, grad,
+                                    relu, stream)
+              : launch<true>(code, rows_per_code, xyz, n, w0, W, b, sdf, grad, stream);
 }

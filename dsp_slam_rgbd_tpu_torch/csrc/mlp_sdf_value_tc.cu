@@ -45,236 +45,18 @@
 //     column: a per-row dot product in f32, then tanh.
 //   * Codes are read per row as code[row / rows_per_code]; the last tile
 //     is masked.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mlp_sdf_tc.cuh"
 
 namespace {
 
-constexpr int D = 512;                       // hidden width
-constexpr int CODE = 64;                     // latent size
-constexpr int IN_DIM = 67;                   // code + xyz
-constexpr int SPLIT = 445;                   // layer-3 real output width
-constexpr int K0 = 128;                      // layer-0 depth: two 64-wide atoms
-constexpr int BM = 64;                       // rows per block (wgmma M)
-constexpr int KC = 64;                       // K per weight stage (one swizzle atom)
-constexpr int NH = 256;                      // outputs per consumer (wgmma N)
 constexpr int NCONS = 256;                   // consumer threads: two warpgroups
 constexpr int NT = NCONS + 128;              // and one producer warpgroup
 constexpr int NSLOT = 2;                     // weight ring slots of one stage each
 constexpr int CONSUMER_REGS = 232;           // setmaxnreg: 2 x 128 x 232 + 128 x 40
 constexpr int PRODUCER_REGS = 40;            //   <= 65,536 registers of the SM
-constexpr int ATOM_BYTES = BM * 128;         // 64 rows x 64 bf16
-constexpr int ACT_BYTES = (D / KC) * ATOM_BYTES;   // 64 KB
-constexpr int XIN_BYTES = (K0 / KC) * ATOM_BYTES;  // 16 KB
-constexpr int STAGE_BYTES = KC * D * 2;      // 64 KB: one K chunk, all outputs
-constexpr int HALF_BYTES = STAGE_BYTES / 2;  // one consumer's 256 outputs
-constexpr int N_STAGES = K0 / KC + 7 * (D / KC);   // 58 stages: w0, W[0..6]
 constexpr int STAGE = 3;                     // bring-up stage of this kernel
 constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES +
                         NSLOT * STAGE_BYTES + D * sizeof(float) + 2 * NSLOT * 8;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of element (row m, column k) in a K-major operand of BM rows
-// in the 128-byte swizzle: 64-column atoms of 8 KB, 128 bytes a row, the
-// 16-byte chunk index XORed with the row's index within its 8-row group.
-__device__ __forceinline__ uint32_t sw_off(int m, int k) {
-  return (k >> 6) * ATOM_BYTES + m * 128 + ((((k >> 3) & 7) ^ (m & 7)) << 4) + ((k & 7) << 1);
-}
-
-// wgmma shared-memory descriptor: 128-byte swizzle, 8-row groups 1024 bytes
-// apart (SBO), LBO unused by the swizzled K-major layout (set to 16 bytes).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
-  return uint64_t((saddr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
-         (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Writes through the generic proxy made visible to the async proxy (wgmma).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 256, f32) (+)= A (64 x 16, bf16) B (16 x 256, bf16), both K-major
-// in shared memory.  accumulate = 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-__device__ __forceinline__ float bf16_at(const uint8_t* buf, int m, int k) {
-  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(buf + sw_off(m, k)));
-}
-
-// Input rows [code | xyz | 0] of the block, rounded to bf16, into xin.
-__device__ void load_input(uint8_t* xin, const float* __restrict__ code, int rows_per_code,
-                           const float* __restrict__ xyz, int n, int base, int t, int nthreads) {
-  for (int e = t; e < BM * (K0 / 8); e += nthreads) {
-    const int m = e / (K0 / 8), k0 = (e % (K0 / 8)) * 8, g = base + m;
-    float v[8];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int k = k0 + q;
-      v[q] = 0.f;
-      if (g < n) {
-        if (k < CODE) v[q] = code[(g / rows_per_code) * CODE + k];
-        else if (k < IN_DIM) v[q] = xyz[g * 3 + (k - CODE)];
-      }
-    }
-    *reinterpret_cast<uint4*>(xin + sw_off(m, k0)) =
-        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
-                   pack_bf16x2(v[6], v[7]));
-  }
-}
-
-// Accumulator fragment of one warpgroup (t = thread in it) for output
-// columns c0..c0+255 (c0 % 64 == 0) -> bias, ReLU, bf16, into the swizzled
-// buffer out.  Fragment of m64nNk16: d[4j + 2h + e] is row r0 + 8h with
-// r0 = 16 warp + lane / 4, column c0 + 8j + 2 (lane % 4) + e, so both rows
-// share one swizzle and column block j sits in atom j / 8, chunk j % 8.
-template <bool REINJECT>
-__device__ __forceinline__ void epilogue(const float (&d)[128], uint8_t* out, const uint8_t* xin,
-                                         const float* __restrict__ bias, int c0, int t) {
-  // Addresses are recomputed per call: hoisted out of the layer loop, they
-  // would stay live beside the 128 accumulators and spill.
-  asm volatile("" : "+r"(t), "+l"(out), "+l"(xin), "+l"(bias));
-  const int lane = t & 31;
-  const int r0 = 16 * (t >> 5) + (lane >> 2);
-  const int sw = r0 & 7;
-  uint8_t* row = out + (c0 >> 6) * ATOM_BYTES + r0 * 128 + (lane & 3) * 4;
-  const float* bc = bias + c0 + 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(bc + 8 * j));
-    uint8_t* p = row + (j >> 3) * ATOM_BYTES + (((j & 7) ^ sw) << 4);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v0 = fmaxf(d[4 * j + 2 * h] + bb.x, 0.f);
-      float v1 = fmaxf(d[4 * j + 2 * h + 1] + bb.y, 0.f);
-      const int c = c0 + 8 * j + 2 * (lane & 3);
-      if (REINJECT && c + 1 >= SPLIT) {  // latent re-injection
-        if (c >= SPLIT) v0 = bf16_at(xin, r0 + 8 * h, c - SPLIT);
-        v1 = bf16_at(xin, r0 + 8 * h, c + 1 - SPLIT);
-      }
-      *reinterpret_cast<uint32_t*>(p + h * 8 * 128) = pack_bf16x2(v0, v1);
-    }
-  }
-}
-
-// Layer 8: sdf = tanh(act . w8 + b8) per row, 4 threads a row.
-__device__ void head(const uint8_t* act, const float* w8s, float b8, float* __restrict__ sdf,
-                     int n, int base, int t, int nthreads) {
-  for (int e = t; e < BM * 4; e += nthreads) {
-    const int m = e >> 2, part = e & 3;
-    float s = 0.f;
-#pragma unroll 4
-    for (int q = 0; q < 16; ++q) {
-      const int k = part * 128 + q * 8;
-      const uint4 v = *reinterpret_cast<const uint4*>(act + sw_off(m, k));
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s = fmaf(__uint_as_float(w[i] << 16), w8s[k + 2 * i], s);
-        s = fmaf(__uint_as_float(w[i] & 0xffff0000u), w8s[k + 2 * i + 1], s);
-      }
-    }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (part == 0 && base + m < n) sdf[base + m] = tanhf(s + b8);
-  }
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Arrive and expect `bytes` of asynchronous copies to complete on bar.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Waits for the completion of bar's phase of the given parity.  With
-// WATCHDOG (the producer's waits), a lost arrival traps after 2^26 polls,
-// each of which may suspend the thread for a while, instead of hanging the
-// card; the consumers' waits go without it, which costs them registers.
-template <bool WATCHDOG>
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t polls = 0;; ++polls) {
-    uint32_t ok;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (ok) return;
-    if (WATCHDOG && polls == (1u << 26)) __trap();
-  }
-}
-// One bulk copy global -> shared, completed on bar as transaction bytes.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-// Barrier of the consumer threads only (id 1; 0 is __syncthreads).
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NCONS) : "memory");
-}
 
 __global__ void __launch_bounds__(NT, 1)
     mlp_sdf_value_tc_kernel(const float* __restrict__ code, int rows_per_code,
@@ -310,7 +92,7 @@ __global__ void __launch_bounds__(NT, 1)
     // the weight stages through the ring, one bulk copy each
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (t == NCONS) {
-      for (int s = 0; s < N_STAGES; ++s) {
+      for (int s = 0; s < FWD_STAGES; ++s) {
         const int slot = s % NSLOT;
         mbar_wait<true>(empty + 8 * slot, ((s / NSLOT) & 1) ^ 1);
         mbar_expect_tx(full + 8 * slot, STAGE_BYTES);
@@ -327,7 +109,7 @@ __global__ void __launch_bounds__(NT, 1)
     const __nv_bfloat16* w8 = W + size_t(7) * D * D;  // layer 8: column 0 of W[7]
     for (int k = t; k < D; k += NCONS) w8s[k] = __bfloat162float(w8[size_t(k) * D]);
     fence_proxy_async();
-    consumers_sync();
+    named_sync<NCONS>();
 
     float d[128];
 #pragma unroll
@@ -351,13 +133,13 @@ __global__ void __launch_bounds__(NT, 1)
         fence_acc(d);
         if ((t & 31) == 0) mbar_arrive(empty + 8 * slot);
       }
-      consumers_sync();  // both warpgroups' reads of act are done
+      named_sync<NCONS>();  // both warpgroups' reads of act are done
       if (layer == 3)
         epilogue<true>(d, act, xin, bias + layer * D, j * NH, tw);
       else
         epilogue<false>(d, act, xin, bias + layer * D, j * NH, tw);
       fence_proxy_async();
-      consumers_sync();
+      named_sync<NCONS>();
     }
     head(act, w8s, bias[8 * D], sdf, n, base, t, NCONS);
   }

@@ -68,8 +68,10 @@ class DeepSDFDecoder(nn.Module):
 
     For the cars/chairs_64 layout the fused kernels' packed weights are
     built at construction and rebuilt on every `.to()`/`.cuda()`, in f32
-    and as a bf16 copy (`packed`), with the bf16 value kernel's weight
-    stream beside them (`value_tiles`).
+    and as a bf16 copy (`packed`), with the bf16 kernels' weight streams
+    beside them: the forward's (`value_tiles`) and the Jacobian's backward
+    sweep's (`backward_tiles`); the Jacobian kernel reads both
+    (`jacobian_tiles`).
     """
 
     def __init__(self, spec: DecoderSpec, layers):
@@ -105,12 +107,18 @@ class DeepSDFDecoder(nn.Module):
 
     def _pack(self) -> None:
         self._packed = {}
-        self.value_tiles = None
+        self.value_tiles = self.backward_tiles = None
         if self.fused:
             wb = mlp_sdf.pack_params(self.layers, self.spec)
             w0, W, b = self._packed[torch.bfloat16] = mlp_sdf.cast_packed(wb, torch.bfloat16)
             self._packed[torch.float32] = wb
             self.value_tiles = mlp_sdf.pack_value_tiles(w0, W)
+            self.backward_tiles = mlp_sdf.pack_backward_tiles(w0, W)
+
+    @property
+    def jacobian_tiles(self):
+        """(forward, backward) weight streams of the bf16 Jacobian kernel."""
+        return self.value_tiles, self.backward_tiles
 
     def _apply(self, fn, recurse=True):
         super()._apply(fn, recurse)
@@ -196,7 +204,7 @@ class DeepSDFDecoder(nn.Module):
         layout, the plain sweep otherwise."""
         if self.fused:
             return mlp_sdf.sdf_and_input_jacobian_fused(
-                self.packed(compute_dtype), code, xyz, compute_dtype)
+                self.packed(compute_dtype), code, xyz, compute_dtype, self.jacobian_tiles)
         return self.sdf_and_input_jacobian(code, xyz, compute_dtype)
 
 

@@ -2,10 +2,11 @@
 
 Counterpart of `dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py`.  The two Pallas
 TPU kernels (`_make_kernel`, `_make_value_kernel`) are CUDA C++ for sm_90a
-in `csrc/mlp_sdf.cu`, with the bf16 value pass on the tensor cores in
-`csrc/mlp_sdf_value_tc.cu`; this module packs the weights, checks and
-flattens the inputs, launches the kernels, and keeps beside each one its
-plain PyTorch version (the CPU route and the reference the card is held to).
+for sm_90a: in bf16 on the tensor cores (`csrc/mlp_sdf_value_tc.cu`,
+`csrc/mlp_sdf_jacobian_tc.cu`), in f32 (the parity mode) as FMA loops in
+`csrc/mlp_sdf.cu`.  This module packs the weights, checks and flattens the
+inputs, launches the kernels, and keeps beside each one its plain PyTorch
+version (the CPU route and the reference the card is held to).
 
 Packed layout (as on the TPU): w0 (128, 512) for layer 0 over the input
 rows [code 64 | xyz 3 | 0]; W (8, 512, 512) for layers 1..8, layer 3's 445
@@ -13,8 +14,10 @@ real output columns padded with zeros and layer 8's single output in
 column 0; b (9, 512).  Before layer 4 the raw 67-d input is written into
 columns 445..511 (the decoder's latent re-injection).
 
-The bf16 value kernel reads w0 and W[0..6] as `pack_value_tiles` lays them
-out: the exact shared-memory image of each stage of its weight ring.
+The bf16 kernels read their weights as host-packed streams, the exact
+shared-memory image of each stage of their weight ring: the forward sweep
+w0 and W[0..6] as `pack_value_tiles` lays them out, the Jacobian's
+backward sweep W[6]ᵀ..W[0]ᵀ and w0ᵀ as `pack_backward_tiles` does.
 
 Batching: code may be one shared (64,) code, per-row (N, 64) codes, or
 per-object (B, 64) codes over xyz (B, N, 3); every form is one launch over
@@ -40,6 +43,10 @@ N_LAYERS = 9
 VALUE_KC = 64                                  # K rows of a layer per value-kernel stage
 VALUE_STAGES = (IN_PAD + (N_LAYERS - 2) * D) // VALUE_KC   # 58
 VALUE_STAGE_BYTES = VALUE_KC * D * 2           # one stage: 64 K x 512 outputs, bf16
+BACKWARD_STAGES = (N_LAYERS - 2) * D // VALUE_KC   # 56 stages of W[6]ᵀ..W[0]ᵀ
+W0T_STAGES = D // VALUE_KC                     # then 8 stages of w0ᵀ,
+W0T_STAGE_BYTES = VALUE_KC * IN_PAD * 2        # 64 K x 128 outputs each
+BACKWARD_BYTES = BACKWARD_STAGES * VALUE_STAGE_BYTES + W0T_STAGES * W0T_STAGE_BYTES
 
 # launches per kernel since the last reset (the plain versions count none)
 LAUNCHES = {"mlp_sdf_value": 0, "mlp_sdf_jacobian": 0}
@@ -95,27 +102,57 @@ def cast_packed(wb, compute_dtype):
     return w0.to(compute_dtype), W.to(compute_dtype), b
 
 
+def _swizzle128(t):
+    """(stages, outputs, 64 K values) -> the same stages with the 16-byte
+    chunk of K values 8c..8c+7 of output n at chunk position c ^ (n % 8)
+    of n's 128-byte row (the 128-byte swizzle), flat."""
+    s, rows, kc = t.shape
+    t = t.reshape(s, rows, kc // 8, 8)
+    n = torch.arange(rows, device=t.device)
+    chunk = torch.arange(kc // 8, device=t.device)
+    src = chunk[None, :] ^ (n % 8)[:, None]     # position p holds chunk p ^ (n % 8)
+    t = torch.gather(t, 2, src[None, :, :, None].expand_as(t))
+    return t.contiguous().reshape(-1)
+
+
+def _check_bf16(w0, W, what):
+    if w0.dtype != torch.bfloat16 or W.dtype != torch.bfloat16:
+        raise ValueError(f"{what} tiles are bf16; got {w0.dtype}, {W.dtype}")
+
+
 def pack_value_tiles(w0, W):
-    """bf16 w0 (128, 512) and W[0..6] -> the bf16 value kernel's weight
+    """bf16 w0 (128, 512) and W[0..6] -> the bf16 kernels' forward weight
     stream, flat (VALUE_STAGES * VALUE_STAGE_BYTES / 2,).
 
     Stage s holds rows 64s..64s+63 of [w0; W[0]; ...; W[6]] (one K chunk of
     one layer), transposed so that each output n is a 128-byte row of its
-    64 K values (B K-major), in the 128-byte swizzle: the 16-byte chunk of
-    K values 8c..8c+7 of output n sits at chunk position c ^ (n % 8).  Each
-    stage is one contiguous copy into shared memory; outputs 0..255 and
-    256..511 are its two 32 KB halves.
+    64 K values (B K-major), in the 128-byte swizzle.  Each stage is one
+    contiguous copy into shared memory; outputs 0..255 and 256..511 are its
+    two 32 KB halves.
     """
-    if w0.dtype != torch.bfloat16 or W.dtype != torch.bfloat16:
-        raise ValueError(f"value tiles are bf16; got {w0.dtype}, {W.dtype}")
+    _check_bf16(w0, W, "value")
     rows = torch.cat([w0, W[:N_LAYERS - 2].reshape(-1, D)])    # (3712, 512) = (K, N)
-    t = rows.reshape(VALUE_STAGES, VALUE_KC, D).transpose(1, 2)  # (s, n, k)
-    t = t.reshape(VALUE_STAGES, D, VALUE_KC // 8, 8)              # (s, n, chunk, e)
-    n = torch.arange(D, device=w0.device)
-    chunk = torch.arange(VALUE_KC // 8, device=w0.device)
-    src = chunk[None, :] ^ (n % 8)[:, None]     # position p holds chunk p ^ (n % 8)
-    t = torch.gather(t, 2, src[None, :, :, None].expand_as(t))
-    return t.contiguous().reshape(-1)
+    return _swizzle128(rows.reshape(VALUE_STAGES, VALUE_KC, D).transpose(1, 2))
+
+
+def pack_backward_tiles(w0, W):
+    """bf16 w0 (128, 512) and W[0..6] -> the bf16 Jacobian kernel's
+    backward weight stream, flat (BACKWARD_BYTES / 2,).
+
+    Step i of the backward sweep is g · W[i-1]ᵀ: the reduction runs over
+    W[i-1]'s output index and its outputs are W[i-1]'s input rows, whose 64
+    K values of one chunk are already contiguous.  So stage 8(6 - l) + c
+    (l = 6..0, c = 0..7) holds, for each of the 512 outputs k, the 128-byte
+    row W[l][k, 64c:64c+64], and stage 56 + c likewise w0[k, 64c:64c+64]
+    for the 128 outputs k of the last product (16 KB stages), all in the
+    128-byte swizzle of `pack_value_tiles`.
+    """
+    _check_bf16(w0, W, "backward")
+    nc = D // VALUE_KC
+    mats = W[:N_LAYERS - 2].flip(0)                             # W[6], ..., W[0]
+    t = mats.reshape(N_LAYERS - 2, D, nc, VALUE_KC).transpose(1, 2)  # (l, c, k, 64)
+    t0 = w0.reshape(IN_PAD, nc, VALUE_KC).transpose(0, 1)            # (c, k, 64)
+    return torch.cat([_swizzle128(t.reshape(BACKWARD_STAGES, D, VALUE_KC)), _swizzle128(t0)])
 
 
 # -- input handling -----------------------------------------------------------
@@ -160,23 +197,45 @@ def _check(wb, compute_dtype, codes, rows):
         raise ValueError("weights, code and xyz must be contiguous")
 
 
+def _check_stream(t, n: int, name: str, dev) -> None:
+    if (t is None or t.dtype != torch.bfloat16 or tuple(t.shape) != (n,)
+            or t.device != dev or not t.is_contiguous()):
+        raise ValueError(f"the bf16 kernels need {name}(w0, W), contiguous bf16 ({n},) on "
+                         f"{dev}; got " + ("None" if t is None else
+                                           f"{t.dtype} {tuple(t.shape)} on {t.device}"))
+
+
 def _check_tiles(tiles, dev) -> None:
-    n = VALUE_STAGES * VALUE_STAGE_BYTES // 2
-    if (tiles is None or tiles.dtype != torch.bfloat16 or tuple(tiles.shape) != (n,)
-            or tiles.device != dev or not tiles.is_contiguous()):
-        raise ValueError(f"the bf16 value kernel needs tiles = pack_value_tiles(w0, W), "
-                         f"contiguous bf16 ({n},) on {dev}; got "
-                         + ("None" if tiles is None else
-                            f"{tiles.dtype} {tuple(tiles.shape)} on {tiles.device}"))
+    _check_stream(tiles, VALUE_STAGES * VALUE_STAGE_BYTES // 2, "pack_value_tiles", dev)
+
+
+def _check_jacobian_tiles(tiles, dev) -> None:
+    if not isinstance(tiles, (tuple, list)) or len(tiles) != 2:
+        raise ValueError("the bf16 Jacobian kernel needs tiles = (pack_value_tiles(w0, W), "
+                         f"pack_backward_tiles(w0, W)); got {type(tiles).__name__}")
+    _check_tiles(tiles[0], dev)
+    _check_stream(tiles[1], BACKWARD_BYTES // 2, "pack_backward_tiles", dev)
+
+
+_CONFIG_KEYS = ("smem_bytes", "threads", "rows_per_block", "stage", "registers",
+                "local_bytes")
+
+
+def _kernel_config(fn: str) -> dict:
+    lib = build.load()
+    out = (ctypes.c_int * len(_CONFIG_KEYS))()
+    _raise_on(lib, getattr(lib, fn)(out), fn)
+    return dict(zip(_CONFIG_KEYS, out))
 
 
 def value_kernel_config() -> dict:
     """The bf16 value kernel's launch figures, read from the built library."""
-    lib = build.load()
-    out = (ctypes.c_int * 6)()
-    _raise_on(lib, lib.mlp_sdf_value_tc_config(out), "mlp_sdf_value_tc_config")
-    keys = ("smem_bytes", "threads", "rows_per_block", "stage", "registers", "local_bytes")
-    return dict(zip(keys, out))
+    return _kernel_config("mlp_sdf_value_tc_config")
+
+
+def jacobian_kernel_config() -> dict:
+    """The bf16 Jacobian kernel's launch figures, read from the built library."""
+    return _kernel_config("mlp_sdf_jacobian_tc_config")
 
 
 def _stream() -> int:
@@ -233,18 +292,24 @@ def _plain_forward(wb, x, compute_dtype, keep_pre: bool):
     return out[:, 0], pres
 
 
+def relu_preactivations(wb, code, xyz, compute_dtype=torch.float32):
+    """The plain version's pre-activations of the 8 ReLU layers, (…, 8, 512)
+    with xyz's leading shape; layer 3's padded columns 445..511 are 0."""
+    codes, rpc, rows, lead = _flatten(code, xyz)
+    _check(wb, compute_dtype, codes, rows)
+    _, pres = _plain_forward(wb, _rows_in(codes, rpc, rows), compute_dtype, True)
+    return torch.stack(pres, dim=1).reshape(lead + (N_LAYERS - 1, D))
+
+
 def relu_margin(wb, code, xyz, compute_dtype=torch.float32):
     """Per row, the least |pre-activation| over the 8 ReLU layers' real
     columns.  Where it is within summation rounding of 0, two correct
     implementations that sum in another order may disagree on the ReLU
     mask, and with it on that row's Jacobian: comparisons leave such rows
     out."""
-    codes, rpc, rows, lead = _flatten(code, xyz)
-    _check(wb, compute_dtype, codes, rows)
-    _, pres = _plain_forward(wb, _rows_in(codes, rpc, rows), compute_dtype, True)
-    pres[3] = pres[3][:, :SPLIT]
-    margin = torch.stack([p.abs().amin(dim=1) for p in pres]).amin(dim=0)
-    return margin.reshape(lead)
+    pre = relu_preactivations(wb, code, xyz, compute_dtype).abs()
+    pre[..., 3, SPLIT:] = float("inf")
+    return pre.amin(dim=(-2, -1))
 
 
 def sdf_value_plain(wb, code, xyz, compute_dtype=torch.float32):
@@ -255,15 +320,24 @@ def sdf_value_plain(wb, code, xyz, compute_dtype=torch.float32):
     return torch.tanh(pre).reshape(lead)
 
 
-def sdf_and_input_jacobian_plain(wb, code, xyz, compute_dtype=torch.float32):
+def sdf_and_input_jacobian_plain(wb, code, xyz, compute_dtype=torch.float32, masks=None):
     """Plain version of `sdf_and_input_jacobian_fused`: one forward sweep,
-    then the reverse sweep from g = 1 − sdf² through gWᵀ and the masks."""
+    then the reverse sweep from g = 1 − sdf² through gWᵀ and the masks.
+
+    masks: optional ReLU masks (…, 8, 512) for the reverse sweep in place
+    of the forward's own (pre-activation > 0), as the kernel reports them
+    through `masks_out`: a pre-activation within rounding of 0 may take
+    the other side in another summation order, and this holds the reverse
+    sweep to the kernel's without that tie."""
     codes, rpc, rows, lead = _flatten(code, xyz)
     _check(wb, compute_dtype, codes, rows)
     rnd = rounder(compute_dtype)
     x = _rows_in(codes, rpc, rows)
     pre, pres = _plain_forward(wb, x, compute_dtype, True)
-    masks = [p > 0.0 for p in pres]
+    if masks is None:
+        masks = [p > 0.0 for p in pres]
+    else:
+        masks = list(masks.reshape(-1, N_LAYERS - 1, D).to(rows.device, torch.bool).unbind(1))
     sdf = torch.tanh(pre)
     w0, W, _ = (w.float() for w in wb)
     g = rnd(1.0 - sdf * sdf)[:, None] * W[N_LAYERS - 2][:, 0][None, :]  # layer 8
@@ -310,11 +384,28 @@ def sdf_value_fused(wb, code, xyz, compute_dtype=torch.float32, tiles=None):
     return sdf.reshape(lead)
 
 
-def sdf_and_input_jacobian_fused(wb, code, xyz, compute_dtype=torch.float32):
+def sdf_and_input_jacobian_fused(wb, code, xyz, compute_dtype=torch.float32, tiles=None,
+                                 masks_out=None):
     """Fused query -> (sdf, d sdf / d[code, xyz] (…, 67)) with xyz's
-    leading shape.  wb as for `sdf_value_fused`."""
+    leading shape.  wb as for `sdf_value_fused`.  tiles: the pair
+    (`pack_value_tiles(w0, W)`, `pack_backward_tiles(w0, W)`) that the bf16
+    kernel reads its forward and backward weights from (see
+    `DeepSDFDecoder.jacobian_tiles`); required for bf16 on the card, unused
+    in f32 and by the plain version.  masks_out: optional contiguous uint8
+    (…, 8, 512) on the card that the bf16 kernel fills with the ReLU masks
+    it took (1 where the pre-activation is > 0), for checking it against
+    `sdf_and_input_jacobian_plain(..., masks=)`."""
     codes, rpc, rows, lead = _flatten(code, xyz)
     _check(wb, compute_dtype, codes, rows)
+    bf16 = compute_dtype == torch.bfloat16
+    if tiles is not None or (bf16 and rows.device.type != "cpu"):
+        _check_jacobian_tiles(tiles, rows.device)
+    if masks_out is not None and (
+            not bf16 or rows.device.type == "cpu" or masks_out.dtype != torch.uint8
+            or tuple(masks_out.shape) != lead + (N_LAYERS - 1, D)
+            or masks_out.device != rows.device or not masks_out.is_contiguous()):
+        raise ValueError(f"masks_out must be contiguous uint8 {lead + (N_LAYERS - 1, D)} on "
+                         "the card, for the bf16 kernel only")
     if rows.device.type == "cpu":
         return sdf_and_input_jacobian_plain(wb, code, xyz, compute_dtype)
     lib = build.load()
@@ -323,10 +414,12 @@ def sdf_and_input_jacobian_fused(wb, code, xyz, compute_dtype=torch.float32):
     grad = torch.empty(n, IN_DIM, dtype=torch.float32, device=rows.device)
     if n:
         w0, W, b = wb
+        fwd, bwd = (t.data_ptr() for t in tiles) if bf16 else (None, None)
         err = lib.mlp_sdf_jacobian(codes.data_ptr(), rpc, rows.data_ptr(), n, w0.data_ptr(),
-                                   W.data_ptr(), b.data_ptr(),
-                                   int(compute_dtype == torch.bfloat16),
-                                   sdf.data_ptr(), grad.data_ptr(), _stream())
+                                   W.data_ptr(), b.data_ptr(), int(bf16), fwd, bwd,
+                                   sdf.data_ptr(), grad.data_ptr(),
+                                   None if masks_out is None else masks_out.data_ptr(),
+                                   _stream())
         _raise_on(lib, err, "mlp_sdf_jacobian")
         LAUNCHES["mlp_sdf_jacobian"] += 1
     return sdf.reshape(lead), grad.reshape(lead + (IN_DIM,))
