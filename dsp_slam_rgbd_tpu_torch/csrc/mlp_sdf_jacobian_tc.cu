@@ -13,7 +13,7 @@
 // on the tensor cores (wgmma), whose bf16 rate (989 TFLOP/s dense) is the
 // ceiling.
 //
-// Design (bring-up stage 1 of 3):
+// Design (bring-up stage 2 of 3):
 //   * A block owns BM = 64 rows, one wgmma M; one warpgroup computes every
 //     product in two passes of 256 outputs (m64n256k16, a 64 x 256 f32
 //     accumulator, 128 registers a thread).
@@ -38,30 +38,63 @@
 //     order the B descriptor reads, 64 K values a row, 128-byte swizzled:
 //     the forward's (`pack_value_tiles`) and the backward's
 //     (`pack_backward_tiles`: W[6]^T..W[0]^T, then w0^T in 16 KB stages).
-//     Here the warpgroup copies each stage's half into shared memory with
-//     plain 16-byte loads before its products.
+//     A producer warp streams the pieces each pass reads (one stage's
+//     256-output half, or 64 outputs of a w0^T stage) through a ring of
+//     NSLOT shared-memory slots, one bulk asynchronous copy
+//     (cp.async.bulk) per piece, completed on the slot's "full" mbarrier;
+//     the consumer warpgroup releases a slot on its "empty" mbarrier once
+//     its wgmma reads are done.  The ring runs across layer boundaries.
 //   * Codes are read per row as code[row / rows_per_code]; the last tile
 //     is masked.
 //
-// Shared memory (182,528 B): 16 KB input rows, 64 KB activations (later
-// g), 32 KB stash, 32 KB weight half, 32 KB ReLU masks (8 layers x 64 rows
-// x 512 bits), 1 KB layer-8 column (bf16), 256 B sdf, 1 KB alignment slack.
+// Shared memory (215,328 B): 16 KB input rows, 64 KB activations (later
+// g), 32 KB stash, two 32 KB ring slots, 32 KB ReLU masks (8 layers x 64
+// rows x 512 bits), 1 KB layer-8 column (bf16), 256 B sdf, four mbarriers,
+// 1 KB alignment slack.
 #include "mlp_sdf_tc.cuh"
 
 namespace {
 
-constexpr int NT = 128;                      // threads: one warpgroup
-constexpr int STAGE = 1;                     // bring-up stage of this kernel
+constexpr int NCONS = 128;                   // consumer threads: one warpgroup
+constexpr int NT = NCONS + 32;               // and one producer warp
+constexpr int NSLOT = 2;                     // weight ring slots of one piece each
+constexpr int STAGE = 2;                     // bring-up stage of this kernel
 constexpr int W0T_STAGE_BYTES = KC * K0 * 2;   // 16 KB: one K chunk of w0^T
 constexpr int W0T_HALF = W0T_STAGE_BYTES / 2;  // one pass's 64 outputs
 constexpr int BWD_W_STAGES = 7 * (D / KC);     // 56 stages of W[6]^T..W[0]^T
 constexpr int MASK_WORDS = BM * D / 32;        // words of one layer's ReLU mask
-constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES + 2 * HALF_BYTES +
-                        8 * MASK_WORDS * 4 + D * 2 + BM * 4;
+constexpr int FWD_PIECES = 2 * FWD_STAGES;   // 116: each stage's two halves
+constexpr int BWD_PIECES = 2 * BWD_W_STAGES; // 112
+constexpr int N_PIECES = FWD_PIECES + BWD_PIECES + 2 * (D / KC);  // + 16 of w0^T
+constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES + HALF_BYTES +
+                        NSLOT * HALF_BYTES + 8 * MASK_WORDS * 4 + D * 2 + BM * 4 +
+                        2 * NSLOT * 8;
 
 // First stage of forward layer l in the packed stream (layer 0 has K0 / KC).
 __device__ __forceinline__ int stage_of(int layer) {
   return layer == 0 ? 0 : K0 / KC + (layer - 1) * (D / KC);
+}
+
+// Piece i of the weight stream, in the order the consumer takes them
+// (forward layer, pass, K chunk; backward step, pass, K chunk; g w0^T pass,
+// K chunk): its source and its bytes.
+__device__ __forceinline__ const uint8_t* piece(int i, const uint8_t* fwd, const uint8_t* bwd,
+                                                uint32_t* bytes) {
+  *bytes = HALF_BYTES;
+  if (i < 2 * (K0 / KC))  // layer 0
+    return fwd + size_t(i % 2) * STAGE_BYTES + (i / 2) * HALF_BYTES;
+  if (i < FWD_PIECES) {
+    const int r = i - 2 * (K0 / KC), layer = 1 + r / 16;
+    return fwd + size_t(stage_of(layer) + r % 8) * STAGE_BYTES + ((r / 8) % 2) * HALF_BYTES;
+  }
+  if (i < FWD_PIECES + BWD_PIECES) {
+    const int r = i - FWD_PIECES;
+    return bwd + size_t((r / 16) * 8 + r % 8) * STAGE_BYTES + ((r / 8) % 2) * HALF_BYTES;
+  }
+  const int r = i - FWD_PIECES - BWD_PIECES;
+  *bytes = W0T_HALF;
+  return bwd + size_t(BWD_W_STAGES) * STAGE_BYTES + size_t(r % 8) * W0T_STAGE_BYTES +
+         (r / 8) * W0T_HALF;
 }
 
 // Backward step 8, elementwise: g[r][c] = bf16((1 - sdf_r^2) w8[c]) where
@@ -167,7 +200,7 @@ __device__ void dump_masks(const uint32_t* masks, uint8_t* __restrict__ relu, in
   for (int layer = 0; layer < 8; ++layer)
     for (int pass = 0; pass < 2; ++pass)
       for (int q = 0; q < 4; ++q) {
-        const uint32_t w = masks[((layer * 2 + pass) * 4 + q) * NT + t];
+        const uint32_t w = masks[((layer * 2 + pass) * 4 + q) * NCONS + t];
         for (int b = 0; b < 32; ++b) {
           const int i = 32 * q + b, g = base + r0 + 8 * ((i >> 1) & 1);
           const int c = pass * NH + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
@@ -176,32 +209,41 @@ __device__ void dump_masks(const uint32_t* masks, uint8_t* __restrict__ relu, in
       }
 }
 
-// Copies `bytes` from global src into shared dst with 16-byte loads, then
-// makes them visible to wgmma.  Starts and ends with a barrier.
-__device__ __forceinline__ void stage_in(uint8_t* dst, const uint8_t* src, int bytes, int t) {
-  __syncthreads();  // the last products' reads of dst are done
-  for (int i = t; i < bytes / 16; i += NT)
-    reinterpret_cast<uint4*>(dst)[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
-  fence_proxy_async();
-  __syncthreads();
-}
+// The ring's slots and barriers, and the consumer's place in the stream.
+struct Ring {
+  uint8_t* slots;
+  uint32_t full, empty;  // NSLOT mbarriers each, 8 bytes apart
+  int s;                 // next piece
 
-// d = A (64 x 64 per K chunk, nk chunks from a) B (the staged weights), one
-// warpgroup, m64n256k16, each chunk's 256-output half copied in first.
-__device__ __forceinline__ void product(float (&d)[128], const uint8_t* a, int nk,
-                                        const uint8_t* src, size_t src_stride, uint8_t* wbuf,
+  // Waits for the next piece; returns its slot's shared memory.
+  __device__ __forceinline__ const uint8_t* acquire() {
+    const int slot = s % NSLOT;
+    mbar_wait<false>(full + 8 * slot, (s / NSLOT) & 1);
+    return slots + slot * HALF_BYTES;
+  }
+  // The warpgroup's wgmma reads of the piece are done: one arrival a warp.
+  __device__ __forceinline__ void release(int t) {
+    if ((t & 31) == 0) mbar_arrive(empty + 8 * (s % NSLOT));
+    ++s;
+  }
+};
+
+// d = A (64 x 64 per K chunk, nk chunks from a) B (the ring's next nk
+// pieces), one warpgroup, m64n256k16.
+__device__ __forceinline__ void product(float (&d)[128], const uint8_t* a, int nk, Ring& ring,
                                         int t) {
   for (int kc = 0; kc < nk; ++kc) {
-    stage_in(wbuf, src + kc * src_stride, HALF_BYTES, t);
+    const uint8_t* b = ring.acquire();
     wgmma_fence();
     fence_acc(d);
 #pragma unroll
     for (int q = 0; q < KC / 16; ++q)
       wgmma_m64n256k16(d, desc_sw128(smem_u32(a + kc * ATOM_BYTES + q * 32)),
-                       desc_sw128(smem_u32(wbuf + q * 32)), kc > 0 || q > 0);
+                       desc_sw128(smem_u32(b + q * 32)), kc > 0 || q > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_acc(d);
+    ring.release(t);
   }
 }
 
@@ -217,28 +259,56 @@ __global__ void __launch_bounds__(NT, 1)
   uint8_t* xin = sm;                   // input rows (layer 0's A)
   uint8_t* act = xin + XIN_BYTES;      // activations, then g, updated in place
   uint8_t* stash = act + ACT_BYTES;    // pass 0's outputs until pass 1 has read act
-  uint8_t* wbuf = stash + HALF_BYTES;  // one weight half
-  uint32_t* masks = reinterpret_cast<uint32_t*>(wbuf + HALF_BYTES);  // [layer][pass][4][NT]
+  uint8_t* slots = stash + HALF_BYTES; // NSLOT weight pieces
+  uint32_t* masks = reinterpret_cast<uint32_t*>(slots + NSLOT * HALF_BYTES);  // [layer][pass][4][NCONS]
   __nv_bfloat16* w8s = reinterpret_cast<__nv_bfloat16*>(masks + 8 * MASK_WORDS);
   float* sdf_s = reinterpret_cast<float*>(w8s + D);
+  const uint32_t full = smem_u32(sdf_s + BM);  // NSLOT mbarriers: piece arrived
+  const uint32_t empty = full + 8 * NSLOT;     // NSLOT mbarriers: piece read
   const int t = threadIdx.x;
   const int base = blockIdx.x * BM;
 
-  load_input(xin, code, rows_per_code, xyz, n, base, t, NT);
-  const __nv_bfloat16* w8 = W + size_t(7) * D * D;  // layer 8: column 0 of W[7]
-  for (int k = t; k < D; k += NT) w8s[k] = w8[size_t(k) * D];
-  fence_proxy_async();
+  if (t == 0) {
+    for (int i = 0; i < NSLOT; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, NCONS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
+
+  if (t >= NCONS) {
+    // ---- producer warp: one thread streams the pieces, one bulk copy each
+    if (t == NCONS) {
+      for (int i = 0; i < N_PIECES; ++i) {
+        const int slot = i % NSLOT;
+        uint32_t bytes;
+        const uint8_t* src = piece(i, fwd, bwd, &bytes);
+        mbar_wait<true>(empty + 8 * slot, ((i / NSLOT) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * slot, bytes);
+        bulk_copy(smem_u32(slots + slot * HALF_BYTES), src, bytes, full + 8 * slot);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup
+  load_input(xin, code, rows_per_code, xyz, n, base, t, NCONS);
+  const __nv_bfloat16* w8 = W + size_t(7) * D * D;  // layer 8: column 0 of W[7]
+  for (int k = t; k < D; k += NCONS) w8s[k] = w8[size_t(k) * D];
+  fence_proxy_async();
+  named_sync<NCONS>();
 
   // pass p's output: pass 0 into the stash, pass 1 into act once every read
   // of act is done; then the stash goes to act's first half
   auto finish_layer = [&]() {
-    for (int i = t; i < HALF_BYTES / 16; i += NT)
+    for (int i = t; i < HALF_BYTES / 16; i += NCONS)
       reinterpret_cast<uint4*>(act)[i] = reinterpret_cast<const uint4*>(stash)[i];
     fence_proxy_async();
-    __syncthreads();
+    named_sync<NCONS>();
   };
-  auto mask_of = [&](int layer, int pass) { return masks + (layer * 2 + pass) * 4 * NT + t; };
+  auto mask_of = [&](int layer, int pass) { return masks + (layer * 2 + pass) * 4 * NCONS + t; };
+  Ring ring{slots, full, empty, 0};
 
   float d[128];
 #pragma unroll
@@ -249,58 +319,60 @@ __global__ void __launch_bounds__(NT, 1)
     const uint8_t* a = layer == 0 ? xin : act;
     const int nk = layer == 0 ? K0 / KC : D / KC;
     for (int pass = 0; pass < 2; ++pass) {
-      product(d, a, nk, fwd + size_t(stage_of(layer)) * STAGE_BYTES + pass * HALF_BYTES,
-              STAGE_BYTES, wbuf, t);
-      if (pass == 1) __syncthreads();
+      product(d, a, nk, ring, t);
+      if (pass == 1) named_sync<NCONS>();
       uint8_t* out = pass == 0 ? stash : act;
       if (layer == 3)
-        epilogue<true, true>(d, out, xin, bias + layer * D, pass * NH, t, mask_of(layer, pass), NT);
+        epilogue<true, true>(d, out, xin, bias + layer * D, pass * NH, t, mask_of(layer, pass),
+                             NCONS);
       else
-        epilogue<false, true>(d, out, xin, bias + layer * D, pass * NH, t, mask_of(layer, pass), NT);
+        epilogue<false, true>(d, out, xin, bias + layer * D, pass * NH, t, mask_of(layer, pass),
+                              NCONS);
     }
     finish_layer();
   }
-  head(act, w8s, bias[8 * D], sdf, n, base, t, NT, sdf_s);
-  __syncthreads();
+  head(act, w8s, bias[8 * D], sdf, n, base, t, NCONS, sdf_s);
+  named_sync<NCONS>();
 
   // ---- backward, step 8: the rank-1 start under layer 7's mask
   for (int pass = 0; pass < 2; ++pass)
-    start_backward(act, pass * NH, t, mask_of(7, pass), NT, sdf_s, w8s);
+    start_backward(act, pass * NH, t, mask_of(7, pass), NCONS, sdf_s, w8s);
   fence_proxy_async();
-  __syncthreads();
+  named_sync<NCONS>();
 
   // ---- steps 7..1: g W[i-1]^T under layer i-1's mask
   for (int i = 7; i >= 1; --i) {
     for (int pass = 0; pass < 2; ++pass) {
-      product(d, act, D / KC, bwd + size_t(7 - i) * (D / KC) * STAGE_BYTES + pass * HALF_BYTES,
-              STAGE_BYTES, wbuf, t);
-      if (pass == 1) __syncthreads();
+      product(d, act, D / KC, ring, t);
+      if (pass == 1) named_sync<NCONS>();
       uint8_t* out = pass == 0 ? stash : act;
       if (i == 4)
-        backward_epilogue<true>(d, out, pass * NH, t, mask_of(i - 1, pass), NT, grad, n, base);
+        backward_epilogue<true>(d, out, pass * NH, t, mask_of(i - 1, pass), NCONS, grad, n,
+                                base);
       else
-        backward_epilogue<false>(d, out, pass * NH, t, mask_of(i - 1, pass), NT, grad, n, base);
+        backward_epilogue<false>(d, out, pass * NH, t, mask_of(i - 1, pass), NCONS, grad, n,
+                                 base);
     }
     finish_layer();
   }
 
   // ---- g w0^T (128 outputs, two passes of 64) plus the re-injection term
-  const uint8_t* w0t = bwd + size_t(BWD_W_STAGES) * STAGE_BYTES;
   for (int pass = 0; pass < 2; ++pass) {
     float d2[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) d2[i] = 0.f;
     for (int kc = 0; kc < D / KC; ++kc) {
-      stage_in(wbuf, w0t + size_t(kc) * W0T_STAGE_BYTES + pass * W0T_HALF, W0T_HALF, t);
+      const uint8_t* b = ring.acquire();
       wgmma_fence();
       fence_acc(d2);
 #pragma unroll
       for (int q = 0; q < KC / 16; ++q)
         wgmma_m64n64k16(d2, desc_sw128(smem_u32(act + kc * ATOM_BYTES + q * 32)),
-                        desc_sw128(smem_u32(wbuf + q * 32)), kc > 0 || q > 0);
+                        desc_sw128(smem_u32(b + q * 32)), kc > 0 || q > 0);
       wgmma_commit();
       wgmma_wait_all();
       fence_acc(d2);
+      ring.release(t);
     }
     output_epilogue(d2, pass * 64, t, grad, n, base);
   }
