@@ -11,90 +11,78 @@
 // real work (forward and backward) against 12 input and 272 output bytes;
 // the weights (two 3.8 MB bf16 streams) stay L2-resident.  The products run
 // on the tensor cores (wgmma), whose bf16 rate (989 TFLOP/s dense) is the
-// ceiling.
+// ceiling.  At the main path's sizes (32 and 128 blocks, under one wave)
+// what holds it back is the serial chain of 122 weight stages each block
+// streams: one block's time, whatever the row count.
 //
-// Design (bring-up stage 2 of 3):
-//   * A block owns BM = 64 rows, one wgmma M; one warpgroup computes every
-//     product in two passes of 256 outputs (m64n256k16, a 64 x 256 f32
-//     accumulator, 128 registers a thread).
-//   * Forward: as the value kernel (mlp_sdf_value_tc.cu): bf16 activations
-//     in 128-byte-swizzled shared memory, updated in place (pass 0's
-//     outputs wait in a stash until pass 1 has read the layer's input),
-//     bias, ReLU and bf16 rounding in the epilogue, latent re-injection
-//     before layer 4, layer 8 as a per-row dot product and tanh.  The
-//     epilogue also keeps each layer's ReLU mask as bits, in the order of
-//     the thread's accumulator fragment (4 words a thread per pass).
+// Design (bring-up stage 3 of 3):
+//   * A block owns BM = 64 rows, one wgmma M, and has three warpgroups:
+//     two consumers and one producer.  setmaxnreg moves registers from the
+//     producer (40 a thread) to the consumers (232).
+//   * Forward: the value kernel's (mlp_sdf_value_tc.cu).  Consumer j
+//     computes outputs 256j..256j+255 of every layer with wgmma m64n256k16
+//     into a 64 x 256 f32 accumulator; bf16 activations stay in 128-byte-
+//     swizzled shared memory and are updated in place behind a named
+//     barrier; the epilogue adds the bias, applies ReLU, rounds to bf16
+//     (RNE), re-injects the input before layer 4, and keeps each layer's
+//     ReLU mask as bits in the order of the thread's accumulator fragment
+//     (4 words a thread); layer 8 is a per-row dot product and tanh.
 //   * Backward: g = (1 - sdf^2) W8[:, 0] under layer 7's mask, written
-//     elementwise (a rank-1 product); then g W[i-1]^T for i = 7..1 and
-//     g w0^T, each a wgmma product over the same in-place activation
-//     buffer.  Output column c of step i is column c of layer i-1's output,
-//     held in the same fragment position in the forward, so each thread
-//     reads back only its own mask words.  The epilogue applies layer
-//     i-1's mask and rounds g to bf16 (RNE); at step 4 columns 445..511 go
-//     to the output, f32 and unmasked (the re-injection gradient), and to
-//     0 in g; the last product (128 outputs, two passes of m64n64k16) adds
-//     its columns 0..66 to them.
+//     elementwise (a rank-1 product); then g W[i-1]^T for i = 7..1, the
+//     same in-place wgmma sweep over g.  Output column c of step i is
+//     column c of layer i-1's output, held in the same fragment position in
+//     the forward, so each thread reads back only its own mask words.  The
+//     epilogue applies layer i-1's mask and rounds g to bf16 (RNE); at step
+//     4 columns 445..511 (all in consumer 1's half) go to the output, f32
+//     and unmasked (the re-injection gradient), and to 0 in g.  The last
+//     product g w0^T has 128 outputs: consumer j takes 64j..64j+63 with
+//     m64n64k16 and adds columns < 67 to the re-injection gradient.
 //   * Weights are host-packed streams of stages in the exact shared-memory
-//     order the B descriptor reads, 64 K values a row, 128-byte swizzled:
-//     the forward's (`pack_value_tiles`) and the backward's
-//     (`pack_backward_tiles`: W[6]^T..W[0]^T, then w0^T in 16 KB stages).
-//     A producer warp streams the pieces each pass reads (one stage's
-//     256-output half, or 64 outputs of a w0^T stage) through a ring of
-//     NSLOT shared-memory slots, one bulk asynchronous copy
-//     (cp.async.bulk) per piece, completed on the slot's "full" mbarrier;
-//     the consumer warpgroup releases a slot on its "empty" mbarrier once
-//     its wgmma reads are done.  The ring runs across layer boundaries.
+//     order the B descriptor reads, 64 K values an output row, 128-byte
+//     swizzled: the forward's (`pack_value_tiles`) and the backward's
+//     (`pack_backward_tiles`: W[6]^T..W[0]^T, then w0^T in 16 KB stages),
+//     122 stages in all.  One producer thread streams them through a ring
+//     of NSLOT slots, one bulk asynchronous copy (cp.async.bulk) per stage,
+//     completed on the slot's "full" mbarrier; each consumer warp arrives on
+//     the slot's "empty" mbarrier once its wgmma reads are done.  The ring
+//     runs across layer boundaries and from the forward into the backward.
 //   * Codes are read per row as code[row / rows_per_code]; the last tile
-//     is masked.
+//     is masked.  On request the kernel writes out the masks it took, so a
+//     check can hold its reverse sweep to the plain one without ReLU ties.
 //
-// Shared memory (215,328 B): 16 KB input rows, 64 KB activations (later
-// g), 32 KB stash, two 32 KB ring slots, 32 KB ReLU masks (8 layers x 64
-// rows x 512 bits), 1 KB layer-8 column (bf16), 256 B sdf, four mbarriers,
-// 1 KB alignment slack.
+// Shared memory (231,712 of the 232,448 B a block may have): 16 KB input
+// rows, 64 KB activations (later g), two 64 KB ring slots, 16 KB for the
+// ReLU masks of layers 0..3 (those of layers 4..7 go to the input buffer,
+// free once layer 3's epilogue has re-injected it), 1 KB layer-8 column
+// (bf16), 256 B sdf, four mbarriers, 1 KB alignment slack.
 #include "mlp_sdf_tc.cuh"
 
 namespace {
 
-constexpr int NCONS = 128;                   // consumer threads: one warpgroup
-constexpr int NT = NCONS + 32;               // and one producer warp
-constexpr int NSLOT = 2;                     // weight ring slots of one piece each
-constexpr int STAGE = 2;                     // bring-up stage of this kernel
+constexpr int NCONS = 256;                   // consumer threads: two warpgroups
+constexpr int NT = NCONS + 128;              // and one producer warpgroup
+constexpr int NSLOT = 2;                     // weight ring slots of one stage each
+constexpr int CONSUMER_REGS = 232;           // setmaxnreg: 2 x 128 x 232 + 128 x 40
+constexpr int PRODUCER_REGS = 40;            //   <= 65,536 registers of the SM
+constexpr int STAGE = 3;                     // bring-up stage of this kernel
 constexpr int W0T_STAGE_BYTES = KC * K0 * 2;   // 16 KB: one K chunk of w0^T
-constexpr int W0T_HALF = W0T_STAGE_BYTES / 2;  // one pass's 64 outputs
 constexpr int BWD_W_STAGES = 7 * (D / KC);     // 56 stages of W[6]^T..W[0]^T
-constexpr int MASK_WORDS = BM * D / 32;        // words of one layer's ReLU mask
-constexpr int FWD_PIECES = 2 * FWD_STAGES;   // 116: each stage's two halves
-constexpr int BWD_PIECES = 2 * BWD_W_STAGES; // 112
-constexpr int N_PIECES = FWD_PIECES + BWD_PIECES + 2 * (D / KC);  // + 16 of w0^T
-constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES + HALF_BYTES +
-                        NSLOT * HALF_BYTES + 8 * MASK_WORDS * 4 + D * 2 + BM * 4 +
+constexpr int N_STAGES = FWD_STAGES + BWD_W_STAGES + D / KC;  // 122, the last 8 of w0^T
+constexpr int MASK_LAYER_WORDS = 4 * NCONS;    // one layer's ReLU mask: 4 KB
+constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES +
+                        NSLOT * STAGE_BYTES + 4 * MASK_LAYER_WORDS * 4 + D * 2 + BM * 4 +
                         2 * NSLOT * 8;
+static_assert(SMEM <= 232448, "shared memory of one block");
 
-// First stage of forward layer l in the packed stream (layer 0 has K0 / KC).
-__device__ __forceinline__ int stage_of(int layer) {
-  return layer == 0 ? 0 : K0 / KC + (layer - 1) * (D / KC);
-}
-
-// Piece i of the weight stream, in the order the consumer takes them
-// (forward layer, pass, K chunk; backward step, pass, K chunk; g w0^T pass,
-// K chunk): its source and its bytes.
-__device__ __forceinline__ const uint8_t* piece(int i, const uint8_t* fwd, const uint8_t* bwd,
-                                                uint32_t* bytes) {
-  *bytes = HALF_BYTES;
-  if (i < 2 * (K0 / KC))  // layer 0
-    return fwd + size_t(i % 2) * STAGE_BYTES + (i / 2) * HALF_BYTES;
-  if (i < FWD_PIECES) {
-    const int r = i - 2 * (K0 / KC), layer = 1 + r / 16;
-    return fwd + size_t(stage_of(layer) + r % 8) * STAGE_BYTES + ((r / 8) % 2) * HALF_BYTES;
-  }
-  if (i < FWD_PIECES + BWD_PIECES) {
-    const int r = i - FWD_PIECES;
-    return bwd + size_t((r / 16) * 8 + r % 8) * STAGE_BYTES + ((r / 8) % 2) * HALF_BYTES;
-  }
-  const int r = i - FWD_PIECES - BWD_PIECES;
-  *bytes = W0T_HALF;
-  return bwd + size_t(BWD_W_STAGES) * STAGE_BYTES + size_t(r % 8) * W0T_STAGE_BYTES +
-         (r / 8) * W0T_HALF;
+// Stage s of the weight stream: its source and its bytes.
+__device__ __forceinline__ const uint8_t* stage_src(int s, const uint8_t* fwd, const uint8_t* bwd,
+                                                    uint32_t* bytes) {
+  *bytes = STAGE_BYTES;
+  if (s < FWD_STAGES) return fwd + size_t(s) * STAGE_BYTES;
+  if (s < FWD_STAGES + BWD_W_STAGES) return bwd + size_t(s - FWD_STAGES) * STAGE_BYTES;
+  *bytes = W0T_STAGE_BYTES;
+  return bwd + size_t(BWD_W_STAGES) * STAGE_BYTES +
+         size_t(s - FWD_STAGES - BWD_W_STAGES) * W0T_STAGE_BYTES;
 }
 
 // Backward step 8, elementwise: g[r][c] = bf16((1 - sdf_r^2) w8[c]) where
@@ -190,50 +178,16 @@ __device__ __forceinline__ void output_epilogue(const float (&d)[32], int c0, in
       }
 }
 
-// Check output: every ReLU mask bit of the block's rows < n as one byte,
-// relu[row][layer][column] (1 where the pre-activation was > 0), read back
-// from the fragment-ordered words of thread t.
-__device__ void dump_masks(const uint32_t* masks, uint8_t* __restrict__ relu, int n, int base,
-                           int t) {
-  const int lane = t & 31;
-  const int r0 = 16 * (t >> 5) + (lane >> 2);
-  for (int layer = 0; layer < 8; ++layer)
-    for (int pass = 0; pass < 2; ++pass)
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t w = masks[((layer * 2 + pass) * 4 + q) * NCONS + t];
-        for (int b = 0; b < 32; ++b) {
-          const int i = 32 * q + b, g = base + r0 + 8 * ((i >> 1) & 1);
-          const int c = pass * NH + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-          if (g < n) relu[(size_t(g) * 8 + layer) * D + c] = (w >> b) & 1u;
-        }
-      }
-}
-
-// The ring's slots and barriers, and the consumer's place in the stream.
-struct Ring {
-  uint8_t* slots;
-  uint32_t full, empty;  // NSLOT mbarriers each, 8 bytes apart
-  int s;                 // next piece
-
-  // Waits for the next piece; returns its slot's shared memory.
-  __device__ __forceinline__ const uint8_t* acquire() {
+// d = A (nk K chunks of 64 from a) B (the ring's next nk stages, outputs
+// 256j..256j+255 of each) for consumer thread t of warpgroup j; s counts
+// the stages taken.  Ends once both warpgroups' reads of a are done.
+__device__ __forceinline__ void product(float (&d)[128], const uint8_t* a, int nk,
+                                        const uint8_t* ring, uint32_t full, uint32_t empty,
+                                        int j, int t, int& s) {
+  for (int kc = 0; kc < nk; ++kc, ++s) {
     const int slot = s % NSLOT;
+    const uint8_t* b = ring + slot * STAGE_BYTES + j * HALF_BYTES;
     mbar_wait<false>(full + 8 * slot, (s / NSLOT) & 1);
-    return slots + slot * HALF_BYTES;
-  }
-  // The warpgroup's wgmma reads of the piece are done: one arrival a warp.
-  __device__ __forceinline__ void release(int t) {
-    if ((t & 31) == 0) mbar_arrive(empty + 8 * (s % NSLOT));
-    ++s;
-  }
-};
-
-// d = A (64 x 64 per K chunk, nk chunks from a) B (the ring's next nk
-// pieces), one warpgroup, m64n256k16.
-__device__ __forceinline__ void product(float (&d)[128], const uint8_t* a, int nk, Ring& ring,
-                                        int t) {
-  for (int kc = 0; kc < nk; ++kc) {
-    const uint8_t* b = ring.acquire();
     wgmma_fence();
     fence_acc(d);
 #pragma unroll
@@ -243,8 +197,29 @@ __device__ __forceinline__ void product(float (&d)[128], const uint8_t* a, int n
     wgmma_commit();
     wgmma_wait_all();
     fence_acc(d);
-    ring.release(t);
+    if ((t & 31) == 0) mbar_arrive(empty + 8 * slot);
   }
+  named_sync<NCONS>();
+}
+
+// Check output: every ReLU mask bit of the block's rows < n as one byte,
+// relu[row][layer][column] (1 where the pre-activation was > 0), read back
+// from the fragment-ordered words of consumer thread t (tw in its
+// warpgroup j).
+__device__ void dump_masks(const uint32_t* mask_lo, const uint32_t* mask_hi,
+                           uint8_t* __restrict__ relu, int n, int base, int t) {
+  const int j = t / 128, tw = t % 128, lane = tw & 31;
+  const int r0 = 16 * (tw >> 5) + (lane >> 2);
+  for (int layer = 0; layer < 8; ++layer)
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t w =
+          (layer < 4 ? mask_lo : mask_hi)[(layer % 4) * MASK_LAYER_WORDS + q * NCONS + t];
+      for (int b = 0; b < 32; ++b) {
+        const int i = 32 * q + b, g = base + r0 + 8 * ((i >> 1) & 1);
+        const int c = j * NH + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        if (g < n) relu[(size_t(g) * 8 + layer) * D + c] = (w >> b) & 1u;
+      }
+    }
 }
 
 __global__ void __launch_bounds__(NT, 1)
@@ -256,15 +231,15 @@ __global__ void __launch_bounds__(NT, 1)
                                float* __restrict__ grad, uint8_t* __restrict__ relu) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* xin = sm;                   // input rows (layer 0's A)
+  uint8_t* xin = sm;                   // input rows (layer 0's A), then masks 4..7
   uint8_t* act = xin + XIN_BYTES;      // activations, then g, updated in place
-  uint8_t* stash = act + ACT_BYTES;    // pass 0's outputs until pass 1 has read act
-  uint8_t* slots = stash + HALF_BYTES; // NSLOT weight pieces
-  uint32_t* masks = reinterpret_cast<uint32_t*>(slots + NSLOT * HALF_BYTES);  // [layer][pass][4][NCONS]
-  __nv_bfloat16* w8s = reinterpret_cast<__nv_bfloat16*>(masks + 8 * MASK_WORDS);
+  uint8_t* ring = act + ACT_BYTES;     // NSLOT weight stages
+  uint32_t* mask_lo = reinterpret_cast<uint32_t*>(ring + NSLOT * STAGE_BYTES);  // masks 0..3
+  uint32_t* mask_hi = reinterpret_cast<uint32_t*>(xin);
+  __nv_bfloat16* w8s = reinterpret_cast<__nv_bfloat16*>(mask_lo + 4 * MASK_LAYER_WORDS);
   float* sdf_s = reinterpret_cast<float*>(w8s + D);
-  const uint32_t full = smem_u32(sdf_s + BM);  // NSLOT mbarriers: piece arrived
-  const uint32_t empty = full + 8 * NSLOT;     // NSLOT mbarriers: piece read
+  const uint32_t full = smem_u32(sdf_s + BM);  // NSLOT mbarriers: stage arrived
+  const uint32_t empty = full + 8 * NSLOT;     // NSLOT mbarriers: stage read
   const int t = threadIdx.x;
   const int base = blockIdx.x * BM;
 
@@ -277,38 +252,41 @@ __global__ void __launch_bounds__(NT, 1)
   }
   __syncthreads();
 
-  if (t >= NCONS) {
-    // ---- producer warp: one thread streams the pieces, one bulk copy each
+  // warpgroup index, uniform across each warp, so that ptxas can apply
+  // setmaxnreg to each role's code
+  const int role = __shfl_sync(0xffffffffu, t / 128, 0);
+  if (role == NCONS / 128) {
+    // ---- producer warpgroup: gives up its registers; one thread streams
+    // the weight stages through the ring, one bulk copy each
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (t == NCONS) {
-      for (int i = 0; i < N_PIECES; ++i) {
-        const int slot = i % NSLOT;
+      for (int s = 0; s < N_STAGES; ++s) {
+        const int slot = s % NSLOT;
         uint32_t bytes;
-        const uint8_t* src = piece(i, fwd, bwd, &bytes);
-        mbar_wait<true>(empty + 8 * slot, ((i / NSLOT) & 1) ^ 1);
+        const uint8_t* src = stage_src(s, fwd, bwd, &bytes);
+        mbar_wait<true>(empty + 8 * slot, ((s / NSLOT) & 1) ^ 1);
         mbar_expect_tx(full + 8 * slot, bytes);
-        bulk_copy(smem_u32(slots + slot * HALF_BYTES), src, bytes, full + 8 * slot);
+        bulk_copy(smem_u32(ring + slot * STAGE_BYTES), src, bytes, full + 8 * slot);
       }
     }
     return;
   }
 
-  // ---- consumer warpgroup
+  // ---- two consumer warpgroups: warpgroup j computes outputs
+  // 256j..256j+255 of every product for all 64 rows
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int j = t / 128, tw = t % 128;
   load_input(xin, code, rows_per_code, xyz, n, base, t, NCONS);
   const __nv_bfloat16* w8 = W + size_t(7) * D * D;  // layer 8: column 0 of W[7]
   for (int k = t; k < D; k += NCONS) w8s[k] = w8[size_t(k) * D];
   fence_proxy_async();
   named_sync<NCONS>();
 
-  // pass p's output: pass 0 into the stash, pass 1 into act once every read
-  // of act is done; then the stash goes to act's first half
-  auto finish_layer = [&]() {
-    for (int i = t; i < HALF_BYTES / 16; i += NCONS)
-      reinterpret_cast<uint4*>(act)[i] = reinterpret_cast<const uint4*>(stash)[i];
-    fence_proxy_async();
-    named_sync<NCONS>();
+  // this thread's mask words of a layer (word q at [q * NCONS])
+  auto mask_of = [&](int layer) {
+    return (layer < 4 ? mask_lo : mask_hi) + (layer % 4) * MASK_LAYER_WORDS + t;
   };
-  auto mask_of = [&](int layer, int pass) { return masks + (layer * 2 + pass) * 4 * NCONS + t; };
-  Ring ring{slots, full, empty, 0};
+  int s = 0;  // next stage of the ring
 
   float d[128];
 #pragma unroll
@@ -316,67 +294,55 @@ __global__ void __launch_bounds__(NT, 1)
 
   // ---- forward
   for (int layer = 0; layer < 8; ++layer) {
-    const uint8_t* a = layer == 0 ? xin : act;
-    const int nk = layer == 0 ? K0 / KC : D / KC;
-    for (int pass = 0; pass < 2; ++pass) {
-      product(d, a, nk, ring, t);
-      if (pass == 1) named_sync<NCONS>();
-      uint8_t* out = pass == 0 ? stash : act;
-      if (layer == 3)
-        epilogue<true, true>(d, out, xin, bias + layer * D, pass * NH, t, mask_of(layer, pass),
-                             NCONS);
-      else
-        epilogue<false, true>(d, out, xin, bias + layer * D, pass * NH, t, mask_of(layer, pass),
-                              NCONS);
-    }
-    finish_layer();
+    product(d, layer == 0 ? xin : act, layer == 0 ? K0 / KC : D / KC, ring, full, empty, j,
+            t, s);
+    if (layer == 3)
+      epilogue<true, true>(d, act, xin, bias + layer * D, j * NH, tw, mask_of(layer), NCONS);
+    else
+      epilogue<false, true>(d, act, xin, bias + layer * D, j * NH, tw, mask_of(layer), NCONS);
+    fence_proxy_async();
+    named_sync<NCONS>();
   }
   head(act, w8s, bias[8 * D], sdf, n, base, t, NCONS, sdf_s);
   named_sync<NCONS>();
 
   // ---- backward, step 8: the rank-1 start under layer 7's mask
-  for (int pass = 0; pass < 2; ++pass)
-    start_backward(act, pass * NH, t, mask_of(7, pass), NCONS, sdf_s, w8s);
+  start_backward(act, j * NH, tw, mask_of(7), NCONS, sdf_s, w8s);
   fence_proxy_async();
   named_sync<NCONS>();
 
   // ---- steps 7..1: g W[i-1]^T under layer i-1's mask
   for (int i = 7; i >= 1; --i) {
-    for (int pass = 0; pass < 2; ++pass) {
-      product(d, act, D / KC, ring, t);
-      if (pass == 1) named_sync<NCONS>();
-      uint8_t* out = pass == 0 ? stash : act;
-      if (i == 4)
-        backward_epilogue<true>(d, out, pass * NH, t, mask_of(i - 1, pass), NCONS, grad, n,
-                                base);
-      else
-        backward_epilogue<false>(d, out, pass * NH, t, mask_of(i - 1, pass), NCONS, grad, n,
-                                 base);
-    }
-    finish_layer();
+    product(d, act, D / KC, ring, full, empty, j, t, s);
+    if (i == 4)
+      backward_epilogue<true>(d, act, j * NH, tw, mask_of(i - 1), NCONS, grad, n, base);
+    else
+      backward_epilogue<false>(d, act, j * NH, tw, mask_of(i - 1), NCONS, grad, n, base);
+    fence_proxy_async();
+    named_sync<NCONS>();
   }
 
-  // ---- g w0^T (128 outputs, two passes of 64) plus the re-injection term
-  for (int pass = 0; pass < 2; ++pass) {
-    float d2[32];
+  // ---- g w0^T (128 outputs, 64 a warpgroup) plus the re-injection term
+  float d2[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) d2[i] = 0.f;
-    for (int kc = 0; kc < D / KC; ++kc) {
-      const uint8_t* b = ring.acquire();
-      wgmma_fence();
-      fence_acc(d2);
+  for (int i = 0; i < 32; ++i) d2[i] = 0.f;
+  for (int kc = 0; kc < D / KC; ++kc, ++s) {
+    const int slot = s % NSLOT;
+    const uint8_t* b = ring + slot * STAGE_BYTES + j * (W0T_STAGE_BYTES / 2);
+    mbar_wait<false>(full + 8 * slot, (s / NSLOT) & 1);
+    wgmma_fence();
+    fence_acc(d2);
 #pragma unroll
-      for (int q = 0; q < KC / 16; ++q)
-        wgmma_m64n64k16(d2, desc_sw128(smem_u32(act + kc * ATOM_BYTES + q * 32)),
-                        desc_sw128(smem_u32(b + q * 32)), kc > 0 || q > 0);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_acc(d2);
-      ring.release(t);
-    }
-    output_epilogue(d2, pass * 64, t, grad, n, base);
+    for (int q = 0; q < KC / 16; ++q)
+      wgmma_m64n64k16(d2, desc_sw128(smem_u32(act + kc * ATOM_BYTES + q * 32)),
+                      desc_sw128(smem_u32(b + q * 32)), kc > 0 || q > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(d2);
+    if ((t & 31) == 0) mbar_arrive(empty + 8 * slot);
   }
-  if (relu != nullptr) dump_masks(masks, relu, n, base, t);
+  output_epilogue(d2, 64 * j, tw, grad, n, base);
+  if (relu != nullptr) dump_masks(mask_lo, mask_hi, relu, n, base, t);
 }
 
 }  // namespace
