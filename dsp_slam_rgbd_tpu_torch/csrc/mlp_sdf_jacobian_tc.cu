@@ -376,9 +376,9 @@ __global__ void __launch_bounds__(NT, 1)
 // columns), 1 KB layer-8 column, 256 B sdf, two mbarriers, 1 KB slack.
 
 constexpr int PAIR_NT = 128;                 // one warpgroup a block
-constexpr int PAIR_NSLOT = 2;                // ring slots of one half stage each
+constexpr int PAIR_NSLOT = 4;                // ring slots of one half stage each
 constexpr int PAIR_MASK_LAYER_WORDS = 4 * PAIR_NT;
-constexpr size_t PAIR_SMEM = 1024 /* alignment slack */ + XIN_BYTES + 2 * ACT_BYTES +
+constexpr size_t PAIR_SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES +
                              PAIR_NSLOT * HALF_BYTES + 8 * PAIR_MASK_LAYER_WORDS * 4 + D * 2 +
                              BM * 4 + PAIR_NSLOT * 8;
 static_assert(PAIR_SMEM <= 232448, "shared memory of one block");
@@ -454,8 +454,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(PAIR_NT, 1)
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* xin = sm;                               // input rows (layer 0's A)
-  uint8_t* act0 = xin + XIN_BYTES;                 // activations, then g: two buffers
-  uint8_t* sm_ring = act0 + 2 * ACT_BYTES;         // PAIR_NSLOT half stages
+  uint8_t* act = xin + XIN_BYTES;                  // activations, then g, in place
+  uint8_t* sm_ring = act + ACT_BYTES;              // PAIR_NSLOT half stages
   uint32_t* masks = reinterpret_cast<uint32_t*>(sm_ring + PAIR_NSLOT * HALF_BYTES);
   __nv_bfloat16* w8s = reinterpret_cast<__nv_bfloat16*>(masks + 8 * PAIR_MASK_LAYER_WORDS);
   float* sdf_s = reinterpret_cast<float*>(w8s + D);
@@ -463,10 +463,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(PAIR_NT, 1)
   const int t = threadIdx.x;
   const int rank = cluster_rank();
   const int base = (blockIdx.x / 2) * BM;
-  uint8_t* peer_act0 = peer_address(act0, rank ^ 1);
-  // activation buffer i % 2, this block's and the other's
-  auto act = [&](int i) { return act0 + (i & 1) * ACT_BYTES; };
-  auto peer_act = [&](int i) { return peer_act0 + (i & 1) * ACT_BYTES; };
+  uint8_t* peer_act = peer_address(act, rank ^ 1);
 
   PairRing ring{sm_ring, full, fwd, bwd, rank, t, 0};
   if (t == 0) {
@@ -495,32 +492,34 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(PAIR_NT, 1)
 
   // ---- forward: layer l reads act(l + 1) (xin for l = 0), writes act(l)
   for (int layer = 0; layer < 8; ++layer) {
-    pair_product(d, layer == 0 ? xin : act(layer + 1), layer == 0 ? K0 / KC : D / KC,
+    pair_product(d, layer == 0 ? xin : act, layer == 0 ? K0 / KC : D / KC,
                  ring);
+    cluster_sync();  // both blocks' reads of act are done
     if (layer == 3)
-      epilogue<true, true, true>(d, act(layer), xin, bias + layer * D, rank * NH, t,
-                                 mask_of(layer), PAIR_NT, peer_act(layer));
+      epilogue<true, true, true>(d, act, xin, bias + layer * D, rank * NH, t,
+                                 mask_of(layer), PAIR_NT, peer_act);
     else
-      epilogue<false, true, true>(d, act(layer), xin, bias + layer * D, rank * NH, t,
-                                  mask_of(layer), PAIR_NT, peer_act(layer));
+      epilogue<false, true, true>(d, act, xin, bias + layer * D, rank * NH, t,
+                                  mask_of(layer), PAIR_NT, peer_act);
     exchange();
   }
-  head(act(1), w8s, bias[8 * D], sdf, rank == 0 ? n : 0, base, t, PAIR_NT, sdf_s);
-  __syncthreads();
+  head(act, w8s, bias[8 * D], sdf, rank == 0 ? n : 0, base, t, PAIR_NT, sdf_s);
+  cluster_sync();
 
-  // ---- backward, step 8 into act(0); step i reads act(7 - i), writes
-  // act(8 - i)
-  start_backward<true>(act(0), rank * NH, t, mask_of(7), PAIR_NT, sdf_s, w8s, peer_act(0));
+  // ---- backward, step 8 into act; step i reads act, writes
+  // act
+  start_backward<true>(act, rank * NH, t, mask_of(7), PAIR_NT, sdf_s, w8s, peer_act);
   exchange();
   for (int i = 7; i >= 1; --i) {
-    pair_product(d, act(7 - i), D / KC, ring);
+    pair_product(d, act, D / KC, ring);
+    cluster_sync();
     if (i == 4) {
-      backward_epilogue<true, true>(d, act(8 - i), rank * NH, t, mask_of(i - 1), PAIR_NT,
-                                    grad, n, base, peer_act(8 - i));
+      backward_epilogue<true, true>(d, act, rank * NH, t, mask_of(i - 1), PAIR_NT,
+                                    grad, n, base, peer_act);
       __threadfence();  // the re-injection gradient, read by the other block
     } else {
-      backward_epilogue<false, true>(d, act(8 - i), rank * NH, t, mask_of(i - 1),
-                                     PAIR_NT, grad, n, base, peer_act(8 - i));
+      backward_epilogue<false, true>(d, act, rank * NH, t, mask_of(i - 1),
+                                     PAIR_NT, grad, n, base, peer_act);
     }
     exchange();
   }
@@ -535,7 +534,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(PAIR_NT, 1)
     fence_acc(d2);
 #pragma unroll
     for (int q = 0; q < KC / 16; ++q)
-      wgmma_m64n64k16(d2, desc_sw128(smem_u32(act(1) + kc * ATOM_BYTES + q * 32)),
+      wgmma_m64n64k16(d2, desc_sw128(smem_u32(act + kc * ATOM_BYTES + q * 32)),
                       desc_sw128(smem_u32(b + q * 32)), kc > 0 || q > 0);
     wgmma_commit();
     wgmma_wait_all();
