@@ -199,11 +199,9 @@ def main(argv=None):
     print(f"phase 2 build: {build_s:.1f} s (nvcc {build.build_seconds} s); "
           f"{' / '.join(ptxas[:8])}", flush=True)
     cfgs = {}
-    for kind, kernel, config in (
-            ("value", "mlp_sdf_value_tc_kernel", mlp_sdf.value_kernel_config),
-            ("jacobian", "mlp_sdf_jacobian_tc_kernel", mlp_sdf.jacobian_kernel_config),
-            ("jacobian pair", "mlp_sdf_jacobian_tc_pair_kernel",
-             functools.partial(mlp_sdf.jacobian_kernel_config, pair=True))):
+    for kind, kernel, config in (("value", "mlp_sdf_value_tc_kernel", mlp_sdf.value_kernel_config),
+                                 ("jacobian", "mlp_sdf_jacobian_tc_kernel",
+                                  mlp_sdf.jacobian_kernel_config)):
         cfg_k = cfgs[kind] = config()
         n_hgmma = hgmma_count(build, kernel)
         check(n_hgmma > 0, f"HGMMA instructions in the bf16 {kind} kernel")

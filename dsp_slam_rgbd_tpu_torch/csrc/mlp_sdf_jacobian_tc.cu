@@ -87,13 +87,10 @@ __device__ __forceinline__ const uint8_t* stage_src(int s, const uint8_t* fwd, c
 
 // Backward step 8, elementwise: g[r][c] = bf16((1 - sdf_r^2) w8[c]) where
 // layer 7's mask is set, else 0 (1 - sdf^2 rounded to bf16 first, so the
-// product is exact in f32), for the fragment positions of columns c0..c0+255;
-// with DUAL, also into the same place of out2.
-template <bool DUAL = false>
+// product is exact in f32), for the fragment positions of columns c0..c0+255.
 __device__ __forceinline__ void start_backward(uint8_t* out, int c0, int t, const uint32_t* mk,
                                                int mk_stride, const float* sdf_s,
-                                               const __nv_bfloat16* w8s,
-                                               uint8_t* out2 = nullptr) {
+                                               const __nv_bfloat16* w8s) {
   const int lane = t & 31;
   const int r0 = 16 * (t >> 5) + (lane >> 2);
   const int sw = r0 & 7;
@@ -118,9 +115,7 @@ __device__ __forceinline__ void start_backward(uint8_t* out, int c0, int t, cons
       const int i0 = 4 * j + 2 * h;
       const float v0 = (words[j >> 3] >> (i0 & 31)) & 1u ? gs[h] * w0 : 0.f;
       const float v1 = (words[j >> 3] >> ((i0 + 1) & 31)) & 1u ? gs[h] * w1 : 0.f;
-      const uint32_t v = pack_bf16x2(v0, v1);
-      *reinterpret_cast<uint32_t*>(p + h * 8 * 128) = v;
-      if (DUAL) *reinterpret_cast<uint32_t*>(out2 + (p - out) + h * 8 * 128) = v;
+      *reinterpret_cast<uint32_t*>(p + h * 8 * 128) = pack_bf16x2(v0, v1);
     }
   }
 }
@@ -129,13 +124,11 @@ __device__ __forceinline__ void start_backward(uint8_t* out, int c0, int t, cons
 // masked by layer i-1's ReLU (mask words as the forward epilogue wrote
 // them), rounded to bf16, into the swizzled buffer out.  At step 4
 // (STEP4), columns >= SPLIT are the raw input's: their f32 values go to
-// grad[row][c - SPLIT] and 0 goes to out.  With DUAL, every value also goes
-// to the same place of out2.
-template <bool STEP4, bool DUAL = false>
+// grad[row][c - SPLIT] and 0 goes to out.
+template <bool STEP4>
 __device__ __forceinline__ void backward_epilogue(const float (&d)[128], uint8_t* out, int c0,
                                                   int t, const uint32_t* mk, int mk_stride,
-                                                  float* __restrict__ grad, int n, int base,
-                                                  uint8_t* out2 = nullptr) {
+                                                  float* __restrict__ grad, int n, int base) {
   asm volatile("" : "+r"(t), "+l"(out), "+l"(mk));
   const int lane = t & 31;
   const int r0 = 16 * (t >> 5) + (lane >> 2);
@@ -162,9 +155,7 @@ __device__ __forceinline__ void backward_epilogue(const float (&d)[128], uint8_t
         if (g < n) grad[size_t(g) * IN_DIM + (c + 1 - SPLIT)] = d[i0 + 1];
         v1 = 0.f;
       }
-      const uint32_t v = pack_bf16x2(v0, v1);
-      *reinterpret_cast<uint32_t*>(p + h * 8 * 128) = v;
-      if (DUAL) *reinterpret_cast<uint32_t*>(out2 + (p - out) + h * 8 * 128) = v;
+      *reinterpret_cast<uint32_t*>(p + h * 8 * 128) = pack_bf16x2(v0, v1);
     }
   }
 }
@@ -213,19 +204,19 @@ __device__ __forceinline__ void product(float (&d)[128], const uint8_t* a, int n
 
 // Check output: every ReLU mask bit of the block's rows < n as one byte,
 // relu[row][layer][column] (1 where the pre-activation was > 0), read back
-// from the fragment-ordered words of thread tw of the warpgroup that owns
-// columns c0..c0+255; word(layer, q) gives the address of word q.
-template <typename Words>
-__device__ void dump_masks(Words word, uint8_t* __restrict__ relu, int n, int base, int c0,
-                           int tw) {
-  const int lane = tw & 31;
+// from the fragment-ordered words of consumer thread t (tw in its
+// warpgroup j).
+__device__ void dump_masks(const uint32_t* mask_lo, const uint32_t* mask_hi,
+                           uint8_t* __restrict__ relu, int n, int base, int t) {
+  const int j = t / 128, tw = t % 128, lane = tw & 31;
   const int r0 = 16 * (tw >> 5) + (lane >> 2);
   for (int layer = 0; layer < 8; ++layer)
     for (int q = 0; q < 4; ++q) {
-      const uint32_t w = *word(layer, q);
+      const uint32_t w =
+          (layer < 4 ? mask_lo : mask_hi)[(layer % 4) * MASK_LAYER_WORDS + q * NCONS + t];
       for (int b = 0; b < 32; ++b) {
         const int i = 32 * q + b, g = base + r0 + 8 * ((i >> 1) & 1);
-        const int c = c0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        const int c = j * NH + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
         if (g < n) relu[(size_t(g) * 8 + layer) * D + c] = (w >> b) & 1u;
       }
     }
@@ -351,200 +342,7 @@ __global__ void __launch_bounds__(NT, 1)
     if ((t & 31) == 0) mbar_arrive(empty + 8 * slot);
   }
   output_epilogue(d2, 64 * j, tw, grad, n, base);
-  if (relu != nullptr)
-    dump_masks([&](int layer, int q) { return mask_of(layer) + q * NCONS; }, relu, n, base,
-               j * NH, tw);
-}
-
-// ---- small launches: a two-block cluster per 64-row tile ------------------
-//
-// Where the tiles fill under half the SMs (the main path's 2,048-row
-// launch: 32 tiles on 132 SMs), each block's chain of 122 stages sets the
-// time, whatever the row count.  So a cluster of two blocks shares each
-// tile: block r computes outputs 256r..256r+255 of every product with one
-// warpgroup (m64n256k16; 64r..64r+63 of g w0^T with m64n64k16), streams only
-// its half of each stage, and writes its epilogue into both blocks'
-// activations (distributed shared memory), which are double-buffered so that
-// one cluster barrier per layer orders the exchange.  The warpgroup issues
-// its own bulk copies, two slots ahead, so that every thread of the
-// cluster takes part in the barriers.  Both blocks compute the forward's
-// inputs and layer 8; block 1 holds the re-injection gradient (columns
-// 445..511), written to the output before the barrier after step 4.
-//
-// Shared memory (231,712 B): 16 KB input rows, two 64 KB activation
-// buffers, two 32 KB ring slots, 16 KB ReLU masks (this block's 256
-// columns), 1 KB layer-8 column, 256 B sdf, two mbarriers, 1 KB slack.
-
-constexpr int PAIR_NT = 128;                 // one warpgroup a block
-constexpr int PAIR_NSLOT = 4;                // ring slots of one half stage each
-constexpr int PAIR_MASK_LAYER_WORDS = 4 * PAIR_NT;
-constexpr size_t PAIR_SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES +
-                             PAIR_NSLOT * HALF_BYTES + 8 * PAIR_MASK_LAYER_WORDS * 4 + D * 2 +
-                             BM * 4 + PAIR_NSLOT * 8;
-static_assert(PAIR_SMEM <= 232448, "shared memory of one block");
-
-// Block `rank`'s piece of stage s: its half of a 64 KB stage, or its 8 KB
-// (64 outputs) of a w0^T stage.
-__device__ __forceinline__ const uint8_t* pair_piece(int s, int rank, const uint8_t* fwd,
-                                                     const uint8_t* bwd, uint32_t* bytes) {
-  const uint8_t* src = stage_src(s, fwd, bwd, bytes);
-  *bytes /= 2;
-  return src + rank * *bytes;
-}
-
-// The ring of one block of the pair: piece s into slot s % PAIR_NSLOT,
-// issued by thread 0 once the warpgroup is done with the slot.
-struct PairRing {
-  uint8_t* slots;
-  uint32_t full;  // PAIR_NSLOT mbarriers, 8 bytes apart
-  const uint8_t* fwd;
-  const uint8_t* bwd;
-  int rank, t, s;  // s: next piece to take
-
-  __device__ __forceinline__ void issue(int i) const {
-    if (t == 0 && i < N_STAGES) {
-      uint32_t bytes;
-      const uint8_t* src = pair_piece(i, rank, fwd, bwd, &bytes);
-      const int slot = i % PAIR_NSLOT;
-      mbar_expect_tx(full + 8 * slot, bytes);
-      bulk_copy(smem_u32(slots + slot * HALF_BYTES), src, bytes, full + 8 * slot);
-    }
-  }
-  // Waits for the next piece; returns its slot.
-  __device__ __forceinline__ const uint8_t* acquire() const {
-    const int slot = s % PAIR_NSLOT;
-    mbar_wait<true>(full + 8 * slot, (s / PAIR_NSLOT) & 1);
-    return slots + slot * HALF_BYTES;
-  }
-  // Every warp's reads of the piece are done: refill its slot.
-  __device__ __forceinline__ void release() {
-    __syncthreads();
-    issue(s + PAIR_NSLOT);
-    ++s;
-  }
-};
-
-// d = A (nk K chunks of 64 from a) B (the ring's next nk pieces), one
-// warpgroup, m64n256k16.
-__device__ __forceinline__ void pair_product(float (&d)[128], const uint8_t* a, int nk,
-                                             PairRing& ring) {
-  for (int kc = 0; kc < nk; ++kc) {
-    const uint8_t* b = ring.acquire();
-    wgmma_fence();
-    fence_acc(d);
-#pragma unroll
-    for (int q = 0; q < KC / 16; ++q)
-      wgmma_m64n256k16(d, desc_sw128(smem_u32(a + kc * ATOM_BYTES + q * 32)),
-                       desc_sw128(smem_u32(b + q * 32)), kc > 0 || q > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_acc(d);
-    ring.release();
-  }
-}
-
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(PAIR_NT, 1)
-    mlp_sdf_jacobian_tc_pair_kernel(const float* __restrict__ code, int rows_per_code,
-                                    const float* __restrict__ xyz, int n,
-                                    const uint8_t* __restrict__ fwd,
-                                    const uint8_t* __restrict__ bwd,
-                                    const __nv_bfloat16* __restrict__ W,
-                                    const float* __restrict__ bias, float* __restrict__ sdf,
-                                    float* __restrict__ grad, uint8_t* __restrict__ relu) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* xin = sm;                               // input rows (layer 0's A)
-  uint8_t* act = xin + XIN_BYTES;                  // activations, then g, in place
-  uint8_t* sm_ring = act + ACT_BYTES;              // PAIR_NSLOT half stages
-  uint32_t* masks = reinterpret_cast<uint32_t*>(sm_ring + PAIR_NSLOT * HALF_BYTES);
-  __nv_bfloat16* w8s = reinterpret_cast<__nv_bfloat16*>(masks + 8 * PAIR_MASK_LAYER_WORDS);
-  float* sdf_s = reinterpret_cast<float*>(w8s + D);
-  const uint32_t full = smem_u32(sdf_s + BM);      // PAIR_NSLOT mbarriers: piece arrived
-  const int t = threadIdx.x;
-  const int rank = cluster_rank();
-  const int base = (blockIdx.x / 2) * BM;
-  uint8_t* peer_act = peer_address(act, rank ^ 1);
-
-  PairRing ring{sm_ring, full, fwd, bwd, rank, t, 0};
-  if (t == 0) {
-    for (int i = 0; i < PAIR_NSLOT; ++i) mbar_init(full + 8 * i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  for (int i = 0; i < PAIR_NSLOT; ++i) ring.issue(i);
-  load_input(xin, code, rows_per_code, xyz, n, base, t, PAIR_NT);
-  const __nv_bfloat16* w8 = W + size_t(7) * D * D;  // layer 8: column 0 of W[7]
-  for (int k = t; k < D; k += PAIR_NT) w8s[k] = w8[size_t(k) * D];
-  fence_proxy_async();
-  cluster_sync();  // both blocks run before either writes the other's memory
-
-  // after writing this block's columns into both blocks' buffers
-  auto exchange = [&]() {
-    fence_proxy_async_all();
-    cluster_sync();
-    fence_proxy_async_all();
-  };
-  auto mask_of = [&](int layer) { return masks + layer * PAIR_MASK_LAYER_WORDS + t; };
-
-  float d[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) d[i] = 0.f;
-
-  // ---- forward: layer l reads act(l + 1) (xin for l = 0), writes act(l)
-  for (int layer = 0; layer < 8; ++layer) {
-    pair_product(d, layer == 0 ? xin : act, layer == 0 ? K0 / KC : D / KC,
-                 ring);
-    cluster_sync();  // both blocks' reads of act are done
-    if (layer == 3)
-      epilogue<true, true, true>(d, act, xin, bias + layer * D, rank * NH, t,
-                                 mask_of(layer), PAIR_NT, peer_act);
-    else
-      epilogue<false, true, true>(d, act, xin, bias + layer * D, rank * NH, t,
-                                  mask_of(layer), PAIR_NT, peer_act);
-    exchange();
-  }
-  head(act, w8s, bias[8 * D], sdf, rank == 0 ? n : 0, base, t, PAIR_NT, sdf_s);
-  cluster_sync();
-
-  // ---- backward, step 8 into act; step i reads act, writes
-  // act
-  start_backward<true>(act, rank * NH, t, mask_of(7), PAIR_NT, sdf_s, w8s, peer_act);
-  exchange();
-  for (int i = 7; i >= 1; --i) {
-    pair_product(d, act, D / KC, ring);
-    cluster_sync();
-    if (i == 4) {
-      backward_epilogue<true, true>(d, act, rank * NH, t, mask_of(i - 1), PAIR_NT,
-                                    grad, n, base, peer_act);
-      __threadfence();  // the re-injection gradient, read by the other block
-    } else {
-      backward_epilogue<false, true>(d, act, rank * NH, t, mask_of(i - 1),
-                                     PAIR_NT, grad, n, base, peer_act);
-    }
-    exchange();
-  }
-
-  // ---- g w0^T: this block's 64 outputs, plus the re-injection term
-  float d2[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d2[i] = 0.f;
-  for (int kc = 0; kc < D / KC; ++kc) {
-    const uint8_t* b = ring.acquire();
-    wgmma_fence();
-    fence_acc(d2);
-#pragma unroll
-    for (int q = 0; q < KC / 16; ++q)
-      wgmma_m64n64k16(d2, desc_sw128(smem_u32(act + kc * ATOM_BYTES + q * 32)),
-                      desc_sw128(smem_u32(b + q * 32)), kc > 0 || q > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_acc(d2);
-    ring.release();
-  }
-  output_epilogue(d2, 64 * rank, t, grad, n, base);
-  if (relu != nullptr)
-    dump_masks([&](int layer, int q) { return mask_of(layer) + q * PAIR_NT; }, relu, n, base,
-               rank * NH, t);
+  if (relu != nullptr) dump_masks(mask_lo, mask_hi, relu, n, base, t);
 }
 
 }  // namespace
@@ -557,32 +355,11 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(PAIR_NT, 1)
 int mlp_sdf_jacobian_tc(const void* code, int rows_per_code, const void* xyz, int n,
                         const void* fwd, const void* bwd, const void* W, const void* b,
                         void* sdf, void* grad, void* relu, void* stream) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return int(err);
-  }
-  const int tiles = (n + BM - 1) / BM;
-  if (2 * tiles <= sms) {  // a two-block cluster per tile still fits in one wave
-    cudaError_t err = cudaFuncSetAttribute(mlp_sdf_jacobian_tc_pair_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           int(PAIR_SMEM));
-    if (err != cudaSuccess) return int(err);
-    mlp_sdf_jacobian_tc_pair_kernel<<<2 * tiles, PAIR_NT, PAIR_SMEM,
-                                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(code), rows_per_code, static_cast<const float*>(xyz), n,
-        static_cast<const uint8_t*>(fwd), static_cast<const uint8_t*>(bwd),
-        static_cast<const __nv_bfloat16*>(W), static_cast<const float*>(b),
-        static_cast<float*>(sdf), static_cast<float*>(grad), static_cast<uint8_t*>(relu));
-    return int(cudaGetLastError());
-  }
   cudaError_t err = cudaFuncSetAttribute(
       mlp_sdf_jacobian_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
   if (err != cudaSuccess) return int(err);
-  mlp_sdf_jacobian_tc_kernel<<<tiles, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(
+  mlp_sdf_jacobian_tc_kernel<<<(n + BM - 1) / BM, NT, SMEM,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(code), rows_per_code, static_cast<const float*>(xyz), n,
       static_cast<const uint8_t*>(fwd), static_cast<const uint8_t*>(bwd),
       static_cast<const __nv_bfloat16*>(W), static_cast<const float*>(b),
@@ -591,17 +368,15 @@ int mlp_sdf_jacobian_tc(const void* code, int rows_per_code, const void* xyz, in
 }
 
 // Shared memory per block, threads per block, rows per block, bring-up
-// stage, registers per thread and local (spill) bytes of the kernel: the
-// one-block kernel (pair = 0) or the two-block cluster's (pair = 1).
-extern "C" int mlp_sdf_jacobian_tc_config(int* out, int pair) {
+// stage, registers per thread and local (spill) bytes of the kernel.
+extern "C" int mlp_sdf_jacobian_tc_config(int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err = pair ? cudaFuncGetAttributes(&attr, mlp_sdf_jacobian_tc_pair_kernel)
-                         : cudaFuncGetAttributes(&attr, mlp_sdf_jacobian_tc_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, mlp_sdf_jacobian_tc_kernel);
   if (err != cudaSuccess) return int(err);
-  out[0] = int(pair ? PAIR_SMEM : SMEM);
-  out[1] = pair ? PAIR_NT : NT;
+  out[0] = int(SMEM);
+  out[1] = NT;
   out[2] = BM;
-  out[3] = pair ? 4 : STAGE;
+  out[3] = STAGE;
   out[4] = attr.numRegs;
   out[5] = int(attr.localSizeBytes);
   return 0;

@@ -158,13 +158,11 @@ __device__ void load_input(uint8_t* xin, const float* __restrict__ code, int row
 // r0 = 16 warp + lane / 4, column c0 + 8j + 2 (lane % 4) + e, so both rows
 // share one swizzle and column block j sits in atom j / 8, chunk j % 8.
 // With MASKS, the ReLU mask (pre-activation > 0) of fragment element i goes
-// to bit i % 32 of word mk[(i / 32) * mk_stride]; with DUAL, every value
-// also goes to the same place of the buffer at out2 (a peer block's).
-template <bool REINJECT, bool MASKS = false, bool DUAL = false>
+// to bit i % 32 of word mk[(i / 32) * mk_stride].
+template <bool REINJECT, bool MASKS = false>
 __device__ __forceinline__ void epilogue(const float (&d)[128], uint8_t* out, const uint8_t* xin,
                                          const float* __restrict__ bias, int c0, int t,
-                                         uint32_t* mk = nullptr, int mk_stride = 0,
-                                         uint8_t* out2 = nullptr) {
+                                         uint32_t* mk = nullptr, int mk_stride = 0) {
   // Addresses are recomputed per call: hoisted out of the layer loop, they
   // would stay live beside the 128 accumulators and spill.
   asm volatile("" : "+r"(t), "+l"(out), "+l"(xin), "+l"(bias));
@@ -193,9 +191,7 @@ __device__ __forceinline__ void epilogue(const float (&d)[128], uint8_t* out, co
         if (c >= SPLIT) v0 = bf16_at(xin, r0 + 8 * h, c - SPLIT);
         v1 = bf16_at(xin, r0 + 8 * h, c + 1 - SPLIT);
       }
-      const uint32_t v = pack_bf16x2(v0, v1);
-      *reinterpret_cast<uint32_t*>(p + h * 8 * 128) = v;
-      if (DUAL) *reinterpret_cast<uint32_t*>(out2 + (p - out) + h * 8 * 128) = v;
+      *reinterpret_cast<uint32_t*>(p + h * 8 * 128) = pack_bf16x2(v0, v1);
     }
   }
   if (MASKS) {
@@ -269,28 +265,6 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
-}
-// Barrier of all threads of the cluster, ordering their memory accesses.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
-                   : "memory");
-}
-__device__ __forceinline__ int cluster_rank() {
-  int r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// Generic address of p's counterpart in the shared memory of cluster block rank.
-template <typename T>
-__device__ __forceinline__ T* peer_address(T* p, int rank) {
-  uint64_t q;
-  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(q) : "l"(p), "r"(rank));
-  return reinterpret_cast<T*>(q);
-}
-// Orders this thread's generic-proxy writes to shared memory (its block's
-// or a peer's) before later async-proxy (wgmma) reads.
-__device__ __forceinline__ void fence_proxy_async_all() {
-  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 // Barrier of the first N threads only (id 1; 0 is __syncthreads).
 template <int N>

@@ -64,7 +64,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mlp_sdf_value_tc_config.restype = i
     lib.mlp_sdf_jacobian.argtypes = [p, i, p, i, p, p, p, i, p, p, p, p, p, p]
     lib.mlp_sdf_jacobian.restype = i
-    lib.mlp_sdf_jacobian_tc_config.argtypes = [ctypes.POINTER(i), i]
+    lib.mlp_sdf_jacobian_tc_config.argtypes = [ctypes.POINTER(i)]
     lib.mlp_sdf_jacobian_tc_config.restype = i
     lib.mlp_sdf_error_string.argtypes = [i]
     lib.mlp_sdf_error_string.restype = ctypes.c_char_p

@@ -221,10 +221,10 @@ _CONFIG_KEYS = ("smem_bytes", "threads", "rows_per_block", "stage", "registers",
                 "local_bytes")
 
 
-def _kernel_config(fn: str, *args) -> dict:
+def _kernel_config(fn: str) -> dict:
     lib = build.load()
     out = (ctypes.c_int * len(_CONFIG_KEYS))()
-    _raise_on(lib, getattr(lib, fn)(out, *args), fn)
+    _raise_on(lib, getattr(lib, fn)(out), fn)
     return dict(zip(_CONFIG_KEYS, out))
 
 
@@ -233,11 +233,9 @@ def value_kernel_config() -> dict:
     return _kernel_config("mlp_sdf_value_tc_config")
 
 
-def jacobian_kernel_config(pair: bool = False) -> dict:
-    """The bf16 Jacobian kernel's launch figures, read from the built
-    library: the one-block kernel, or with pair the two-block cluster that
-    takes launches whose tiles fill at most half the SMs."""
-    return _kernel_config("mlp_sdf_jacobian_tc_config", int(pair))
+def jacobian_kernel_config() -> dict:
+    """The bf16 Jacobian kernel's launch figures, read from the built library."""
+    return _kernel_config("mlp_sdf_jacobian_tc_config")
 
 
 def _stream() -> int:
