@@ -418,8 +418,16 @@ def main(argv=None):
     t_val["l2_bytes"] = blocks * mlp_sdf.VALUE_STAGES * mlp_sdf.VALUE_STAGE_BYTES
     t_val["l2_tb_per_s"] = t_val["l2_bytes"] / t_val["ms"] / 1e9
     t_val.update({k: vcfg[k] for k in ("stage", "smem_bytes", "registers")})
+    # every block of the Jacobian kernel streams both weight streams, one
+    # stage after another: at these sizes (one wave) the chain sets the time
+    jac_stages = mlp_sdf.VALUE_STAGES + mlp_sdf.BACKWARD_STAGES + mlp_sdf.W0T_STAGES
     for t in (t_jac, t_jac_sdf):
         t.update({k: jcfg[k] for k in ("stage", "smem_bytes", "registers")})
+        blocks = -(-t["rows"] // jcfg["rows_per_block"])
+        t["l2_bytes"] = blocks * (mlp_sdf.VALUE_STAGES * mlp_sdf.VALUE_STAGE_BYTES
+                                  + mlp_sdf.BACKWARD_BYTES)
+        t["l2_tb_per_s"] = t["l2_bytes"] / t["ms"] / 1e9
+        t["us_per_stage"] = t["ms"] * 1e3 / jac_stages
     report["timing"] = {"value": t_val, "jacobian_render": t_jac, "jacobian_sdf": t_jac_sdf,
                         "card": smi}
     for label, t in (("value", t_val), ("jacobian render", t_jac),
@@ -433,7 +441,10 @@ def main(argv=None):
           f"{t_val['l2_bytes'] / 1e9:.3f} GB per launch = {t_val['l2_tb_per_s']:.2f} TB/s",
           flush=True)
     print(f"phase 7 jacobian kernel: stage {jcfg['stage']}, {jcfg['smem_bytes']} B shared "
-          f"memory per block, {jcfg['registers']} registers", flush=True)
+          f"memory per block, {jcfg['registers']} registers; weight streams from L2 "
+          + ", ".join(f"{t['l2_bytes'] / 1e9:.3f} GB = {t['l2_tb_per_s']:.2f} TB/s, "
+                      f"{t['us_per_stage']:.3f} us per stage at {t['rows']} rows"
+                      for t in (t_jac, t_jac_sdf)), flush=True)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "rows", "dtype")
     kernels = [
