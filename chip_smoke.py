@@ -32,9 +32,9 @@ Tolerances (kernel vs plain version, same inputs, on the card):
     at every unit whose pre-activation keeps |pre| >= 2e-2: each layer's
     bf16 rounding carries a change of summation order on to later
     pre-activations at a few 1e-3, and a unit that near 0 may take the
-    other side (at random weights 1-40 units per case, enough to move the
-    whole Jacobian by 1-2.5%); the error against the plain version's own
-    masks is reported beside it;
+    other side (at random weights about one unit per ten rows, enough to
+    move the whole Jacobian by 1-2.5%); the error against the plain
+    version's own masks is reported beside it;
   * bf16 vs f32: Jacobian row cosine >= 0.90, Frobenius relative <= 0.25;
   * one f32 GN iteration, kernels on the card vs plain versions on the
     CPU: pose and code atol 2e-3.

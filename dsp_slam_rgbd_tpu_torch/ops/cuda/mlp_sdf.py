@@ -1,8 +1,8 @@
 """Fused DeepSDF decoder kernels: value, and value + input Jacobian.
 
 Counterpart of `dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py`.  The two Pallas
-TPU kernels (`_make_kernel`, `_make_value_kernel`) are CUDA C++ for sm_90a
-for sm_90a: in bf16 on the tensor cores (`csrc/mlp_sdf_value_tc.cu`,
+TPU kernels (`_make_kernel`, `_make_value_kernel`) are CUDA C++ for
+sm_90a: in bf16 on the tensor cores (`csrc/mlp_sdf_value_tc.cu`,
 `csrc/mlp_sdf_jacobian_tc.cu`), in f32 (the parity mode) as FMA loops in
 `csrc/mlp_sdf.cu`.  This module packs the weights, checks and flattens the
 inputs, launches the kernels, and keeps beside each one its plain PyTorch
