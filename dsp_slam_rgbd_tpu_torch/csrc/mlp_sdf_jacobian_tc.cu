@@ -19,7 +19,8 @@
 //   * A block owns BM = 64 rows, one wgmma M, and has three warpgroups:
 //     two consumers and one producer.  setmaxnreg moves registers from the
 //     producer (40 a thread) to the consumers (232).
-//   * Forward: the value kernel's (mlp_sdf_value_tc.cu).  Consumer j
+//   * Forward: the value kernel's (mlp_sdf_value_tc.cu), on the same
+//     ring, set-up and K loop (mlp_sdf_tc.cuh).  Consumer j
 //     computes outputs 256j..256j+255 of every layer with wgmma m64n256k16
 //     into a 64 x 256 f32 accumulator; bf16 activations stay in 128-byte-
 //     swizzled shared memory and are updated in place behind a named
@@ -59,19 +60,13 @@
 
 namespace {
 
-constexpr int NCONS = 256;                   // consumer threads: two warpgroups
-constexpr int NT = NCONS + 128;              // and one producer warpgroup
-constexpr int NSLOT = 2;                     // weight ring slots of one stage each
-constexpr int CONSUMER_REGS = 232;           // setmaxnreg: 2 x 128 x 232 + 128 x 40
-constexpr int PRODUCER_REGS = 40;            //   <= 65,536 registers of the SM
 constexpr int STAGE = 3;                     // bring-up stage of this kernel
 constexpr int W0T_STAGE_BYTES = KC * K0 * 2;   // 16 KB: one K chunk of w0^T
 constexpr int BWD_W_STAGES = 7 * (D / KC);     // 56 stages of W[6]^T..W[0]^T
 constexpr int N_STAGES = FWD_STAGES + BWD_W_STAGES + D / KC;  // 122, the last 8 of w0^T
 constexpr int MASK_LAYER_WORDS = 4 * NCONS;    // one layer's ReLU mask: 4 KB
-constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES +
-                        NSLOT * STAGE_BYTES + 4 * MASK_LAYER_WORDS * 4 + D * 2 + BM * 4 +
-                        2 * NSLOT * 8;
+constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES + RING_BYTES +
+                        4 * MASK_LAYER_WORDS * 4 + D * 2 + BM * 4 + BAR_BYTES;
 static_assert(SMEM <= 232448, "shared memory of one block");
 
 // Stage s of the weight stream: its source and its bytes.
@@ -178,30 +173,6 @@ __device__ __forceinline__ void output_epilogue(const float (&d)[32], int c0, in
       }
 }
 
-// d = A (nk K chunks of 64 from a) B (the ring's next nk stages, outputs
-// 256j..256j+255 of each) for consumer thread t of warpgroup j; s counts
-// the stages taken.  Ends once both warpgroups' reads of a are done.
-__device__ __forceinline__ void product(float (&d)[128], const uint8_t* a, int nk,
-                                        const uint8_t* ring, uint32_t full, uint32_t empty,
-                                        int j, int t, int& s) {
-  for (int kc = 0; kc < nk; ++kc, ++s) {
-    const int slot = s % NSLOT;
-    const uint8_t* b = ring + slot * STAGE_BYTES + j * HALF_BYTES;
-    mbar_wait<false>(full + 8 * slot, (s / NSLOT) & 1);
-    wgmma_fence();
-    fence_acc(d);
-#pragma unroll
-    for (int q = 0; q < KC / 16; ++q)
-      wgmma_m64n256k16(d, desc_sw128(smem_u32(a + kc * ATOM_BYTES + q * 32)),
-                       desc_sw128(smem_u32(b + q * 32)), kc > 0 || q > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_acc(d);
-    if ((t & 31) == 0) mbar_arrive(empty + 8 * slot);
-  }
-  named_sync<NCONS>();
-}
-
 // Check output: every ReLU mask bit of the block's rows < n as one byte,
 // relu[row][layer][column] (1 where the pre-activation was > 0), read back
 // from the fragment-ordered words of consumer thread t (tw in its
@@ -230,57 +201,31 @@ __global__ void __launch_bounds__(NT, 1)
                                const float* __restrict__ bias, float* __restrict__ sdf,
                                float* __restrict__ grad, uint8_t* __restrict__ relu) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* xin = sm;                   // input rows (layer 0's A), then masks 4..7
+  uint8_t* xin = smem_base(smem_raw);  // input rows (layer 0's A), then masks 4..7
   uint8_t* act = xin + XIN_BYTES;      // activations, then g, updated in place
   uint8_t* ring = act + ACT_BYTES;     // NSLOT weight stages
-  uint32_t* mask_lo = reinterpret_cast<uint32_t*>(ring + NSLOT * STAGE_BYTES);  // masks 0..3
+  uint32_t* mask_lo = reinterpret_cast<uint32_t*>(ring + RING_BYTES);  // masks 0..3
   uint32_t* mask_hi = reinterpret_cast<uint32_t*>(xin);
   __nv_bfloat16* w8s = reinterpret_cast<__nv_bfloat16*>(mask_lo + 4 * MASK_LAYER_WORDS);
   float* sdf_s = reinterpret_cast<float*>(w8s + D);
-  const uint32_t full = smem_u32(sdf_s + BM);  // NSLOT mbarriers: stage arrived
-  const uint32_t empty = full + 8 * NSLOT;     // NSLOT mbarriers: stage read
+  const uint32_t full = smem_u32(sdf_s + BM);  // the ring's mbarriers
   const int t = threadIdx.x;
   const int base = blockIdx.x * BM;
-
-  if (t == 0) {
-    for (int i = 0; i < NSLOT; ++i) {
-      mbar_init(full + 8 * i, 1);
-      mbar_init(empty + 8 * i, NCONS / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  ring_init(full, t);
 
   // warpgroup index, uniform across each warp, so that ptxas can apply
   // setmaxnreg to each role's code
   const int role = __shfl_sync(0xffffffffu, t / 128, 0);
   if (role == NCONS / 128) {
-    // ---- producer warpgroup: gives up its registers; one thread streams
-    // the weight stages through the ring, one bulk copy each
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (t == NCONS) {
-      for (int s = 0; s < N_STAGES; ++s) {
-        const int slot = s % NSLOT;
-        uint32_t bytes;
-        const uint8_t* src = stage_src(s, fwd, bwd, &bytes);
-        mbar_wait<true>(empty + 8 * slot, ((s / NSLOT) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * slot, bytes);
-        bulk_copy(smem_u32(ring + slot * STAGE_BYTES), src, bytes, full + 8 * slot);
-      }
-    }
+    produce(N_STAGES, [=](int s, uint32_t* bytes) { return stage_src(s, fwd, bwd, bytes); },
+            ring, full, t);
     return;
   }
 
   // ---- two consumer warpgroups: warpgroup j computes outputs
   // 256j..256j+255 of every product for all 64 rows
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  consumer_start(xin, w8s, code, rows_per_code, xyz, n, base, W, t);
   const int j = t / 128, tw = t % 128;
-  load_input(xin, code, rows_per_code, xyz, n, base, t, NCONS);
-  const __nv_bfloat16* w8 = W + size_t(7) * D * D;  // layer 8: column 0 of W[7]
-  for (int k = t; k < D; k += NCONS) w8s[k] = w8[size_t(k) * D];
-  fence_proxy_async();
-  named_sync<NCONS>();
 
   // this thread's mask words of a layer (word q at [q * NCONS])
   auto mask_of = [&](int layer) {
@@ -294,8 +239,8 @@ __global__ void __launch_bounds__(NT, 1)
 
   // ---- forward
   for (int layer = 0; layer < 8; ++layer) {
-    product(d, layer == 0 ? xin : act, layer == 0 ? K0 / KC : D / KC, ring, full, empty, j,
-            t, s);
+    product(d, layer == 0 ? xin : act, layer == 0 ? K0 / KC : D / KC, ring, full,
+            j * HALF_BYTES, t, s);
     if (layer == 3)
       epilogue<true, true>(d, act, xin, bias + layer * D, j * NH, tw, mask_of(layer), NCONS);
     else
@@ -303,7 +248,7 @@ __global__ void __launch_bounds__(NT, 1)
     fence_proxy_async();
     named_sync<NCONS>();
   }
-  head(act, w8s, bias[8 * D], sdf, n, base, t, NCONS, sdf_s);
+  head(act, w8s, bias[8 * D], sdf, n, base, t, sdf_s);
   named_sync<NCONS>();
 
   // ---- backward, step 8: the rank-1 start under layer 7's mask
@@ -313,7 +258,7 @@ __global__ void __launch_bounds__(NT, 1)
 
   // ---- steps 7..1: g W[i-1]^T under layer i-1's mask
   for (int i = 7; i >= 1; --i) {
-    product(d, act, D / KC, ring, full, empty, j, t, s);
+    product(d, act, D / KC, ring, full, j * HALF_BYTES, t, s);
     if (i == 4)
       backward_epilogue<true>(d, act, j * NH, tw, mask_of(i - 1), NCONS, grad, n, base);
     else
@@ -326,21 +271,7 @@ __global__ void __launch_bounds__(NT, 1)
   float d2[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) d2[i] = 0.f;
-  for (int kc = 0; kc < D / KC; ++kc, ++s) {
-    const int slot = s % NSLOT;
-    const uint8_t* b = ring + slot * STAGE_BYTES + j * (W0T_STAGE_BYTES / 2);
-    mbar_wait<false>(full + 8 * slot, (s / NSLOT) & 1);
-    wgmma_fence();
-    fence_acc(d2);
-#pragma unroll
-    for (int q = 0; q < KC / 16; ++q)
-      wgmma_m64n64k16(d2, desc_sw128(smem_u32(act + kc * ATOM_BYTES + q * 32)),
-                      desc_sw128(smem_u32(b + q * 32)), kc > 0 || q > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_acc(d2);
-    if ((t & 31) == 0) mbar_arrive(empty + 8 * slot);
-  }
+  product(d2, act, D / KC, ring, full, j * (W0T_STAGE_BYTES / 2), t, s);
   output_epilogue(d2, 64 * j, tw, grad, n, base);
   if (relu != nullptr) dump_masks(mask_lo, mask_hi, relu, n, base, t);
 }

@@ -4,7 +4,10 @@
 // whose bf16 activations stay in 128-byte-swizzled shared memory, read by
 // wgmma descriptors, and both stream host-packed weight stages (64-deep K
 // chunks of a layer for all its outputs, K-major, swizzled) with bulk
-// asynchronous copies through an mbarrier ring.
+// asynchronous copies through an mbarrier ring.  A block has two consumer
+// warpgroups, which multiply, and one producer warpgroup, whose first
+// thread feeds the ring; the ring, both roles' set-up and the K loop of a
+// product live here, so the two kernels differ only in what they compute.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,6 +30,13 @@ constexpr int XIN_BYTES = (K0 / KC) * ATOM_BYTES;  // 16 KB
 constexpr int STAGE_BYTES = KC * D * 2;      // 64 KB: one K chunk, all outputs
 constexpr int HALF_BYTES = STAGE_BYTES / 2;  // one consumer's 256 outputs
 constexpr int FWD_STAGES = K0 / KC + 7 * (D / KC);  // 58 stages: w0, W[0..6]
+constexpr int NCONS = 256;                   // consumer threads: two warpgroups
+constexpr int NT = NCONS + 128;              // and one producer warpgroup
+constexpr int NSLOT = 2;                     // weight ring slots of one stage each
+constexpr int RING_BYTES = NSLOT * STAGE_BYTES;
+constexpr int BAR_BYTES = 2 * NSLOT * 8;     // the ring's mbarriers
+constexpr int CONSUMER_REGS = 232;           // setmaxnreg: 2 x 128 x 232 + 128 x 40
+constexpr int PRODUCER_REGS = 40;            //   <= 65,536 registers of the SM
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -128,13 +138,11 @@ __device__ __forceinline__ float bf16_at(const uint8_t* buf, int m, int k) {
   return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(buf + sw_off(m, k)));
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Input rows [code | xyz | 0] of the block, rounded to bf16, into xin.
+// Input rows [code | xyz | 0] of the block, rounded to bf16, into xin
+// (consumer thread t).
 __device__ void load_input(uint8_t* xin, const float* __restrict__ code, int rows_per_code,
-                           const float* __restrict__ xyz, int n, int base, int t, int nthreads) {
-  for (int e = t; e < BM * (K0 / 8); e += nthreads) {
+                           const float* __restrict__ xyz, int n, int base, int t) {
+  for (int e = t; e < BM * (K0 / 8); e += NCONS) {
     const int m = e / (K0 / 8), k0 = (e % (K0 / 8)) * 8, g = base + m;
     float v[8];
 #pragma unroll
@@ -200,12 +208,11 @@ __device__ __forceinline__ void epilogue(const float (&d)[128], uint8_t* out, co
   }
 }
 
-// Layer 8: sdf = tanh(act . w8 + b8) per row, 4 threads a row; with
-// sdf_s, every row's value also goes to shared memory.
-template <typename WT>
-__device__ void head(const uint8_t* act, const WT* w8s, float b8, float* __restrict__ sdf,
-                     int n, int base, int t, int nthreads, float* sdf_s = nullptr) {
-  for (int e = t; e < BM * 4; e += nthreads) {
+// Layer 8: sdf = tanh(act . w8 + b8) per row, 4 consumer threads a row;
+// with sdf_s, every row's value also goes to shared memory.
+__device__ void head(const uint8_t* act, const __nv_bfloat16* w8s, float b8,
+                     float* __restrict__ sdf, int n, int base, int t, float* sdf_s = nullptr) {
+  for (int e = t; e < BM * 4; e += NCONS) {
     const int m = e >> 2, part = e & 3;
     float s = 0.f;
 #pragma unroll 4
@@ -215,8 +222,8 @@ __device__ void head(const uint8_t* act, const WT* w8s, float b8, float* __restr
       const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        s = fmaf(__uint_as_float(w[i] << 16), to_f32(w8s[k + 2 * i]), s);
-        s = fmaf(__uint_as_float(w[i] & 0xffff0000u), to_f32(w8s[k + 2 * i + 1]), s);
+        s = fmaf(__uint_as_float(w[i] << 16), __bfloat162float(w8s[k + 2 * i]), s);
+        s = fmaf(__uint_as_float(w[i] & 0xffff0000u), __bfloat162float(w8s[k + 2 * i + 1]), s);
       }
     }
     s += __shfl_xor_sync(0xffffffffu, s, 1);
@@ -270,6 +277,94 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
 template <int N>
 __device__ __forceinline__ void named_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
+}
+
+// Start of the dynamic shared memory, aligned to the swizzle's 1024 bytes.
+__device__ __forceinline__ uint8_t* smem_base(uint8_t* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// Thread 0 sets up the ring's mbarriers: NSLOT "full" ones at `full` (the
+// producer's arrival plus the stage's copy bytes), then NSLOT "empty" ones
+// (one arrival per consumer warp).  The whole block meets after.
+__device__ __forceinline__ void ring_init(uint32_t full, int t) {
+  if (t == 0) {
+    for (int i = 0; i < NSLOT; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(full + 8 * (NSLOT + i), NCONS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer warpgroup: gives up its registers; its first thread streams
+// stages 0..n_stages-1 through the ring, one bulk copy each, once the
+// slot's previous stage has been read (with the watchdog).  src(s, &bytes)
+// gives stage s's source and size (at most STAGE_BYTES).
+template <typename Src>
+__device__ __forceinline__ void produce(int n_stages, Src src, uint8_t* ring, uint32_t full,
+                                        int t) {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+  if (t != NCONS) return;
+  const uint32_t empty = full + 8 * NSLOT;
+  for (int s = 0; s < n_stages; ++s) {
+    const int slot = s % NSLOT;
+    uint32_t bytes;
+    const uint8_t* p = src(s, &bytes);
+    mbar_wait<true>(empty + 8 * slot, ((s / NSLOT) & 1) ^ 1);
+    mbar_expect_tx(full + 8 * slot, bytes);
+    bulk_copy(smem_u32(ring + slot * STAGE_BYTES), p, bytes, full + 8 * slot);
+  }
+}
+
+// The consumer warpgroups' start (thread t < NCONS): take the producer's
+// registers, load the block's input rows into xin and layer 8's column
+// (column 0 of W[7]) into w8s, visible to wgmma and to every consumer.
+__device__ __forceinline__ void consumer_start(uint8_t* xin, __nv_bfloat16* w8s,
+                                               const float* __restrict__ code, int rows_per_code,
+                                               const float* __restrict__ xyz, int n, int base,
+                                               const __nv_bfloat16* __restrict__ W, int t) {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  load_input(xin, code, rows_per_code, xyz, n, base, t);
+  const __nv_bfloat16* w8 = W + size_t(7) * D * D;
+  for (int k = t; k < D; k += NCONS) w8s[k] = w8[size_t(k) * D];
+  fence_proxy_async();
+  named_sync<NCONS>();
+}
+
+// d = A B for consumer thread t: A is nk K chunks of 64 from a (BM rows),
+// B the ring's next nk stages from byte b_off of each (this warpgroup's
+// NACC / 2 outputs); s counts the stages taken.  wgmma m64n256k16 for 128
+// accumulators, m64n64k16 for 32.  Ends once both warpgroups' reads of a
+// are done, so that a may be written.
+template <int NACC>
+__device__ __forceinline__ void product(float (&d)[NACC], const uint8_t* a, int nk,
+                                        const uint8_t* ring, uint32_t full, int b_off, int t,
+                                        int& s) {
+  static_assert(NACC == 128 || NACC == 32, "an m64n256k16 or m64n64k16 accumulator");
+  const uint32_t empty = full + 8 * NSLOT;
+  for (int kc = 0; kc < nk; ++kc, ++s) {
+    const int slot = s % NSLOT;
+    const uint8_t* b = ring + slot * STAGE_BYTES + b_off;
+    mbar_wait<false>(full + 8 * slot, (s / NSLOT) & 1);
+    wgmma_fence();
+    fence_acc(d);
+#pragma unroll
+    for (int q = 0; q < KC / 16; ++q) {
+      const uint64_t da = desc_sw128(smem_u32(a + kc * ATOM_BYTES + q * 32));
+      const uint64_t db = desc_sw128(smem_u32(b + q * 32));
+      if constexpr (NACC == 128)
+        wgmma_m64n256k16(d, da, db, kc > 0 || q > 0);
+      else
+        wgmma_m64n64k16(d, da, db, kc > 0 || q > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(d);
+    if ((t & 31) == 0) mbar_arrive(empty + 8 * slot);
+  }
+  named_sync<NCONS>();
 }
 
 }  // namespace

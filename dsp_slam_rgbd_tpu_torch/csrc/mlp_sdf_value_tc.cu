@@ -42,21 +42,19 @@
 //     writes the accumulator fragment into the swizzled layout; before
 //     layer 4, columns 445..511 (all in consumer 1's half) take the bf16
 //     input row (latent re-injection).  Layer 8 has one real output
-//     column: a per-row dot product in f32, then tanh.
+//     column (kept in shared memory as bf16): a per-row dot product in
+//     f32, then tanh.
+//   * The ring, both roles' set-up and the K loop are the Jacobian
+//     kernel's too (mlp_sdf_tc.cuh).
 //   * Codes are read per row as code[row / rows_per_code]; the last tile
 //     is masked.
 #include "mlp_sdf_tc.cuh"
 
 namespace {
 
-constexpr int NCONS = 256;                   // consumer threads: two warpgroups
-constexpr int NT = NCONS + 128;              // and one producer warpgroup
-constexpr int NSLOT = 2;                     // weight ring slots of one stage each
-constexpr int CONSUMER_REGS = 232;           // setmaxnreg: 2 x 128 x 232 + 128 x 40
-constexpr int PRODUCER_REGS = 40;            //   <= 65,536 registers of the SM
 constexpr int STAGE = 3;                     // bring-up stage of this kernel
-constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES +
-                        NSLOT * STAGE_BYTES + D * sizeof(float) + 2 * NSLOT * 8;
+constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES + RING_BYTES +
+                        D * 2 + BAR_BYTES;
 
 __global__ void __launch_bounds__(NT, 1)
     mlp_sdf_value_tc_kernel(const float* __restrict__ code, int rows_per_code,
@@ -65,84 +63,45 @@ __global__ void __launch_bounds__(NT, 1)
                             const __nv_bfloat16* __restrict__ W,
                             const float* __restrict__ bias, float* __restrict__ sdf) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* xin = sm;                   // input rows (layer 0's A)
+  uint8_t* xin = smem_base(smem_raw);  // input rows (layer 0's A)
   uint8_t* act = xin + XIN_BYTES;      // activations, updated in place
   uint8_t* ring = act + ACT_BYTES;     // NSLOT weight stages
-  float* w8s = reinterpret_cast<float*>(ring + NSLOT * STAGE_BYTES);
-  const uint32_t full = smem_u32(w8s + D);  // NSLOT mbarriers: stage arrived
-  const uint32_t empty = full + 8 * NSLOT;  // NSLOT mbarriers: stage read
+  __nv_bfloat16* w8s = reinterpret_cast<__nv_bfloat16*>(ring + RING_BYTES);  // layer 8
+  const uint32_t full = smem_u32(w8s + D);  // the ring's mbarriers
   const int t = threadIdx.x;
   const int base = blockIdx.x * BM;
-
-  if (t == 0) {
-    for (int s = 0; s < NSLOT; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, NCONS / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  ring_init(full, t);
 
   // warpgroup index, uniform across each warp, so that ptxas can apply
   // setmaxnreg to each role's code
   const int role = __shfl_sync(0xffffffffu, t / 128, 0);
   if (role == NCONS / 128) {
-    // ---- producer warpgroup: gives up its registers; one thread streams
-    // the weight stages through the ring, one bulk copy each
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (t == NCONS) {
-      for (int s = 0; s < FWD_STAGES; ++s) {
-        const int slot = s % NSLOT;
-        mbar_wait<true>(empty + 8 * slot, ((s / NSLOT) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * slot, STAGE_BYTES);
-        bulk_copy(smem_u32(ring + slot * STAGE_BYTES), tiles + size_t(s) * STAGE_BYTES,
-                  STAGE_BYTES, full + 8 * slot);
-      }
-    }
-  } else {
-    // ---- two consumer warpgroups: warpgroup j computes outputs
-    // 256j..256j+255 of every layer for all 64 rows
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    const int j = t / 128, tw = t % 128;
-    load_input(xin, code, rows_per_code, xyz, n, base, t, NCONS);
-    const __nv_bfloat16* w8 = W + size_t(7) * D * D;  // layer 8: column 0 of W[7]
-    for (int k = t; k < D; k += NCONS) w8s[k] = __bfloat162float(w8[size_t(k) * D]);
+    produce(FWD_STAGES, [=](int s, uint32_t* bytes) {
+      *bytes = STAGE_BYTES;
+      return tiles + size_t(s) * STAGE_BYTES;
+    }, ring, full, t);
+    return;
+  }
+
+  // ---- two consumer warpgroups: warpgroup j computes outputs
+  // 256j..256j+255 of every layer for all 64 rows
+  consumer_start(xin, w8s, code, rows_per_code, xyz, n, base, W, t);
+  const int j = t / 128, tw = t % 128;
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+  int s = 0;  // next stage of the ring
+  for (int layer = 0; layer < 8; ++layer) {
+    product(d, layer == 0 ? xin : act, layer == 0 ? K0 / KC : D / KC, ring, full,
+            j * HALF_BYTES, t, s);
+    if (layer == 3)
+      epilogue<true>(d, act, xin, bias + layer * D, j * NH, tw);
+    else
+      epilogue<false>(d, act, xin, bias + layer * D, j * NH, tw);
     fence_proxy_async();
     named_sync<NCONS>();
-
-    float d[128];
-#pragma unroll
-    for (int i = 0; i < 128; ++i) d[i] = 0.f;
-    int s = 0;
-    for (int layer = 0; layer < 8; ++layer) {
-      const uint8_t* a = layer == 0 ? xin : act;
-      const int nk = layer == 0 ? K0 / KC : D / KC;
-      for (int kc = 0; kc < nk; ++kc, ++s) {
-        const int slot = s % NSLOT;
-        const uint8_t* b = ring + slot * STAGE_BYTES + j * HALF_BYTES;
-        mbar_wait<false>(full + 8 * slot, (s / NSLOT) & 1);
-        wgmma_fence();
-        fence_acc(d);
-#pragma unroll
-        for (int q = 0; q < KC / 16; ++q)
-          wgmma_m64n256k16(d, desc_sw128(smem_u32(a + kc * ATOM_BYTES + q * 32)),
-                           desc_sw128(smem_u32(b + q * 32)), kc > 0 || q > 0);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_acc(d);
-        if ((t & 31) == 0) mbar_arrive(empty + 8 * slot);
-      }
-      named_sync<NCONS>();  // both warpgroups' reads of act are done
-      if (layer == 3)
-        epilogue<true>(d, act, xin, bias + layer * D, j * NH, tw);
-      else
-        epilogue<false>(d, act, xin, bias + layer * D, j * NH, tw);
-      fence_proxy_async();
-      named_sync<NCONS>();
-    }
-    head(act, w8s, bias[8 * D], sdf, n, base, t, NCONS);
   }
+  head(act, w8s, bias[8 * D], sdf, n, base, t);
 }
 
 }  // namespace
