@@ -26,15 +26,21 @@ Tolerances (kernel vs plain version, same inputs, on the card):
     order may take the other mask; at most 10% of rows are left out);
   * bf16 vs plain bf16: sdf atol 1e-2, Jacobian Frobenius relative 2e-2
     (same rounding points, f32 sums in another order can flip a bf16
-    rounding).  For the bf16 Jacobian kernel the Frobenius error is taken
-    against the plain reverse sweep run with the ReLU masks the kernel
-    reports (`masks_out`), and those masks must equal the plain version's
-    at every unit whose pre-activation keeps |pre| >= 2e-2: each layer's
-    bf16 rounding carries a change of summation order on to later
-    pre-activations at a few 1e-3, and a unit that near 0 may take the
-    other side (at random weights about one unit per ten rows, enough to
-    move the whole Jacobian by 1-2.5%); the error against the plain
-    version's own masks is reported beside it;
+    rounding).  The bf16 Jacobian kernel also reports the ReLU masks it
+    took (`masks_out`).  A change of summation order moves later
+    pre-activations by a few 1e-3 through each layer's bf16 rounding, and
+    a unit that near 0 takes the other side: at random weights about one
+    unit in ten rows, which alone moves the whole Jacobian by 1-2.5%
+    (tests/test_torch_jacobian_tiles.py shows it on the CPU with a model
+    of the tensor cores' accumulation).  So the kernel is held to: its
+    masks equal the plain version's at every unit with |pre| >= 1e-2
+    (BF16_TIE), and differ at no more than 8 + n/5 units over n rows;
+    the plain reverse sweep under its masks within 2e-2; and the plain
+    version with its own masks within 2e-2 on the rows where no mask
+    differs.  Each case also reports the largest |pre| of a unit whose
+    masks differ, the error against the plain version's own masks over
+    all rows, and the distance of kernel and plain version from the
+    plain version with every product summed in f64 and rounded once;
   * bf16 vs f32: Jacobian row cosine >= 0.90, Frobenius relative <= 0.25;
   * one f32 GN iteration, kernels on the card vs plain versions on the
     CPU: pose and code atol 2e-3.
@@ -54,7 +60,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "ellipsoid_decoder_64.npz")
 
 SDF_ATOL, JAC_ATOL, TIE = 2e-5, 2e-4, 1e-6
-BF16_SDF_ATOL, BF16_JAC_FROB, BF16_TIE = 1e-2, 2e-2, 2e-2
+BF16_SDF_ATOL, BF16_JAC_FROB, BF16_TIE = 1e-2, 2e-2, 1e-2
 # main path: bench.py's shapes
 B, N_PTS, N_RAYS, ITERS = 8, 256, 512, 10
 # bf16 kernel sweeps: around their 64-row tile, and past the main path's sizes
@@ -142,6 +148,11 @@ def frob_rel(a, b):
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
+def f64_matmul(a, b):
+    """a @ b with the sums in f64, rounded once to f32."""
+    return (a.double() @ b.double()).float()
+
+
 def hold_bf16_jacobian(mlp_sdf, wb, tiles, code, xyz, tag):
     """The bf16 Jacobian kernel against its plain version on the same
     inputs (tolerances above) -> (the kernel's sdf and Jacobian, the
@@ -151,18 +162,26 @@ def hold_bf16_jacobian(mlp_sdf, wb, tiles, code, xyz, tag):
     s_k, g_k = mlp_sdf.sdf_and_input_jacobian_fused(wb, code, xyz, bf, tiles, masks_out=relu)
     s_p, g_p = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, bf)
     _, g_m = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, bf, masks=relu)
+    _, g_64 = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, bf, matmul=f64_matmul)
     pre = mlp_sdf.relu_preactivations(wb, code, xyz, bf)
     torch.cuda.synchronize()
     check(s_k.shape == s_p.shape and g_k.shape == g_p.shape
           and bool(torch.isfinite(s_k).all()) and bool(torch.isfinite(g_k).all()),
           f"{tag}: finite kernel output of the plain version's shape")
     differ = relu.bool() != (pre > 0)
-    off_tie = int((differ & (pre.abs() >= BF16_TIE)).sum())
-    e_s, e_g = float((s_k - s_p).abs().max()), frob_rel(g_k, g_m)
-    check(e_s <= BF16_SDF_ATOL and e_g <= BF16_JAC_FROB and off_tie == 0,
-          f"{tag}: sdf {e_s} jac frob {e_g}, {off_tie} masks differ off the ties")
-    return s_k, g_k, g_m, {"case": tag, "sdf_err": e_s, "jac_err": e_g,
-                           "jac_err_own_masks": frob_rel(g_k, g_p), "mask_ties": int(differ.sum())}
+    n_rows, n_differ = s_k.numel(), int(differ.sum())
+    agree = ~differ.reshape(n_rows, -1).any(1)   # rows whose masks all agree
+    g_k1, g_p1 = g_k.reshape(n_rows, -1), g_p.reshape(n_rows, -1)
+    case = {"case": tag, "sdf_err": float((s_k - s_p).abs().max()), "jac_err": frob_rel(g_k, g_m),
+            "jac_err_own_masks_agreeing_rows":
+                frob_rel(g_k1[agree], g_p1[agree]) if bool(agree.any()) else 0.0,
+            "jac_err_own_masks": frob_rel(g_k, g_p), "mask_ties": n_differ,
+            "tie_pre_max": float(pre[differ].abs().max()) if n_differ else 0.0,
+            "kernel_vs_f64": frob_rel(g_k, g_64), "plain_vs_f64": frob_rel(g_p, g_64)}
+    check(case["sdf_err"] <= BF16_SDF_ATOL and case["jac_err"] <= BF16_JAC_FROB
+          and case["jac_err_own_masks_agreeing_rows"] <= BF16_JAC_FROB
+          and case["tie_pre_max"] < BF16_TIE and n_differ <= 8 + n_rows // 5, f"{tag}: {case}")
+    return s_k, g_k, g_m, case
 
 
 def main(argv=None):

@@ -266,12 +266,14 @@ def rounder(compute_dtype):
     return lambda t: t
 
 
-def _plain_forward(wb, x, compute_dtype, keep_pre: bool):
+def _plain_forward(wb, x, compute_dtype, keep_pre: bool, matmul=torch.matmul):
     """Forward sweep over packed rows x (n, 128) -> (pre-tanh (n,), the 8
     ReLU layers' pre-activations if keep_pre).
 
     bf16 mode rounds every operand to bf16 before the product and
     multiplies in f32, which is exact: a bf16 product with f32 accumulation.
+    matmul(a, b) -> a @ b in f32 computes every product (see
+    `sdf_and_input_jacobian_plain`).
     """
     rnd = rounder(compute_dtype)
     w0, W, b = (w.float() for w in wb)
@@ -279,25 +281,26 @@ def _plain_forward(wb, x, compute_dtype, keep_pre: bool):
     h = x
     for i in range(N_LAYERS - 1):
         if i == 0:
-            pre = rnd(x) @ w0 + b[0]
+            pre = matmul(rnd(x), w0) + b[0]
         else:
             if i == 4:
                 # latent re-injection: cols 445..511 <- raw input's 67 dims
                 h = torch.cat([h[:, :SPLIT], x[:, :IN_DIM]], dim=1)
-            pre = rnd(h) @ W[i - 1] + b[i]
+            pre = matmul(rnd(h), W[i - 1]) + b[i]
         h = torch.relu(pre)
         if keep_pre:
             pres.append(pre)
-    out = rnd(h) @ W[N_LAYERS - 2][:, :1] + b[N_LAYERS - 1, :1]  # layer 8, column 0
+    out = matmul(rnd(h), W[N_LAYERS - 2][:, :1]) + b[N_LAYERS - 1, :1]  # layer 8, column 0
     return out[:, 0], pres
 
 
-def relu_preactivations(wb, code, xyz, compute_dtype=torch.float32):
+def relu_preactivations(wb, code, xyz, compute_dtype=torch.float32, matmul=torch.matmul):
     """The plain version's pre-activations of the 8 ReLU layers, (…, 8, 512)
-    with xyz's leading shape; layer 3's padded columns 445..511 are 0."""
+    with xyz's leading shape; layer 3's padded columns 445..511 are 0.
+    matmul as for `sdf_and_input_jacobian_plain`."""
     codes, rpc, rows, lead = _flatten(code, xyz)
     _check(wb, compute_dtype, codes, rows)
-    _, pres = _plain_forward(wb, _rows_in(codes, rpc, rows), compute_dtype, True)
+    _, pres = _plain_forward(wb, _rows_in(codes, rpc, rows), compute_dtype, True, matmul)
     return torch.stack(pres, dim=1).reshape(lead + (N_LAYERS - 1, D))
 
 
@@ -320,7 +323,8 @@ def sdf_value_plain(wb, code, xyz, compute_dtype=torch.float32):
     return torch.tanh(pre).reshape(lead)
 
 
-def sdf_and_input_jacobian_plain(wb, code, xyz, compute_dtype=torch.float32, masks=None):
+def sdf_and_input_jacobian_plain(wb, code, xyz, compute_dtype=torch.float32, masks=None,
+                                 matmul=torch.matmul):
     """Plain version of `sdf_and_input_jacobian_fused`: one forward sweep,
     then the reverse sweep from g = 1 − sdf² through gWᵀ and the masks.
 
@@ -328,12 +332,15 @@ def sdf_and_input_jacobian_plain(wb, code, xyz, compute_dtype=torch.float32, mas
     of the forward's own (pre-activation > 0), as the kernel reports them
     through `masks_out`: a pre-activation within rounding of 0 may take
     the other side in another summation order, and this holds the reverse
-    sweep to the kernel's without that tie."""
+    sweep to the kernel's without that tie.  matmul: computes every
+    product, (a, b) -> a @ b in f32; a check passes another summation
+    order (f64 sums rounded once, or a model of the tensor cores') to see
+    what the order alone does."""
     codes, rpc, rows, lead = _flatten(code, xyz)
     _check(wb, compute_dtype, codes, rows)
     rnd = rounder(compute_dtype)
     x = _rows_in(codes, rpc, rows)
-    pre, pres = _plain_forward(wb, x, compute_dtype, True)
+    pre, pres = _plain_forward(wb, x, compute_dtype, True, matmul)
     if masks is None:
         masks = [p > 0.0 for p in pres]
     else:
@@ -343,12 +350,12 @@ def sdf_and_input_jacobian_plain(wb, code, xyz, compute_dtype=torch.float32, mas
     g = rnd(1.0 - sdf * sdf)[:, None] * W[N_LAYERS - 2][:, 0][None, :]  # layer 8
     extra = None
     for i in range(N_LAYERS - 2, 0, -1):
-        g = rnd(g * masks[i]) @ W[i - 1].T
+        g = matmul(rnd(g * masks[i]), W[i - 1].T)
         if i == 4:
             # columns >= SPLIT of layer 4's input belong to the raw input
             extra = g[:, SPLIT:]
             g = torch.cat([g[:, :SPLIT], torch.zeros_like(extra)], dim=1)
-    grad = rnd(g * masks[0]) @ w0.T
+    grad = matmul(rnd(g * masks[0]), w0.T)
     grad = grad[:, :IN_DIM] + extra
     return sdf.reshape(lead), grad.reshape(lead + (IN_DIM,))
 

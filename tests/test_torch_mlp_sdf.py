@@ -26,7 +26,7 @@ from dsp_slam_rgbd_tpu_torch.weights import decoder_from_numpy
 
 SDF_ATOL, JAC_ATOL = 2e-5, 2e-4
 BF16_SDF_ATOL, BF16_JAC_FROB = 1e-2, 2e-2
-TIE = 1e-6
+TIE, BF16_TIE = 1e-6, 1e-2
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -209,7 +209,11 @@ def test_module_imports_and_runs_without_nvcc(monkeypatch, both):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_on_card(dtype):
-    """On the card: both kernels against their plain versions at ragged N."""
+    """On the card: both kernels against their plain versions at ragged N.
+    The bf16 Jacobian kernel also reports the ReLU masks it took: they must
+    equal the plain version's away from ReLU ties (|pre| >= BF16_TIE, as in
+    chip_smoke.py), and the plain reverse sweep under them must give the
+    kernel's Jacobian."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dt = getattr(torch, dtype)
@@ -218,12 +222,11 @@ def test_kernels_match_plain_on_card(dtype):
     wb = dec.packed(dt)
     if dt == torch.float32:
         s_k, g_k = mlp_sdf.sdf_and_input_jacobian_fused(wb, code, xyz, dt)
-        s_p, g_p = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, dt)
-    else:   # the reverse sweep under the masks the kernel took (ReLU ties)
+    else:
         relu = torch.empty(300, 8, 512, dtype=torch.uint8, device="cuda")
         s_k, g_k = mlp_sdf.sdf_and_input_jacobian_fused(wb, code, xyz, dt, dec.jacobian_tiles,
                                                         masks_out=relu)
-        s_p, g_p = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, dt, masks=relu)
+    s_p, g_p = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, dt)
     v_k = mlp_sdf.sdf_value_fused(wb, code, xyz, dt, dec.value_tiles)
     torch.cuda.synchronize()
     sdf_atol = SDF_ATOL if dt == torch.float32 else BF16_SDF_ATOL
@@ -235,3 +238,7 @@ def test_kernels_match_plain_on_card(dtype):
                                    atol=JAC_ATOL)
     else:
         assert _frob_rel(g_k.cpu().numpy(), g_p.cpu().numpy()) <= BF16_JAC_FROB
+        pre = mlp_sdf.relu_preactivations(wb, code, xyz, dt)
+        assert int(((relu.bool() != (pre > 0)) & (pre.abs() >= BF16_TIE)).sum()) == 0
+        _, g_m = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, dt, masks=relu)
+        assert _frob_rel(g_k.cpu().numpy(), g_m.cpu().numpy()) <= BF16_JAC_FROB
