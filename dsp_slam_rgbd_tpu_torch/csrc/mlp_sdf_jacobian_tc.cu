@@ -84,8 +84,7 @@ __device__ __forceinline__ const uint8_t* stage_src(int s, const uint8_t* fwd, c
 // layer 7's mask is set, else 0 (1 - sdf^2 rounded to bf16 first, so the
 // product is exact in f32), for the fragment positions of columns c0..c0+255.
 __device__ __forceinline__ void start_backward(uint8_t* out, int c0, int t, const uint32_t* mk,
-                                               int mk_stride, const float* sdf_s,
-                                               const __nv_bfloat16* w8s) {
+                                               const float* sdf_s, const __nv_bfloat16* w8s) {
   const int lane = t & 31;
   const int r0 = 16 * (t >> 5) + (lane >> 2);
   const int sw = r0 & 7;
@@ -100,7 +99,7 @@ __device__ __forceinline__ void start_backward(uint8_t* out, int c0, int t, cons
   }
   uint32_t words[4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) words[q] = mk[q * mk_stride];
+  for (int q = 0; q < 4; ++q) words[q] = mk[q * NCONS];
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     const float w0 = __bfloat162float(wc[8 * j]), w1 = __bfloat162float(wc[8 * j + 1]);
@@ -122,7 +121,7 @@ __device__ __forceinline__ void start_backward(uint8_t* out, int c0, int t, cons
 // grad[row][c - SPLIT] and 0 goes to out.
 template <bool STEP4>
 __device__ __forceinline__ void backward_epilogue(const float (&d)[128], uint8_t* out, int c0,
-                                                  int t, const uint32_t* mk, int mk_stride,
+                                                  int t, const uint32_t* mk,
                                                   float* __restrict__ grad, int n, int base) {
   asm volatile("" : "+r"(t), "+l"(out), "+l"(mk));
   const int lane = t & 31;
@@ -131,7 +130,7 @@ __device__ __forceinline__ void backward_epilogue(const float (&d)[128], uint8_t
   uint8_t* row = out + (c0 >> 6) * ATOM_BYTES + r0 * 128 + (lane & 3) * 4;
   uint32_t words[4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) words[q] = mk[q * mk_stride];
+  for (int q = 0; q < 4; ++q) words[q] = mk[q * NCONS];
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     uint8_t* p = row + (j >> 3) * ATOM_BYTES + (((j & 7) ^ sw) << 4);
@@ -242,9 +241,9 @@ __global__ void __launch_bounds__(NT, 1)
     product(d, layer == 0 ? xin : act, layer == 0 ? K0 / KC : D / KC, ring, full,
             j * HALF_BYTES, t, s);
     if (layer == 3)
-      epilogue<true, true>(d, act, xin, bias + layer * D, j * NH, tw, mask_of(layer), NCONS);
+      epilogue<true, true>(d, act, xin, bias + layer * D, j * NH, tw, mask_of(layer));
     else
-      epilogue<false, true>(d, act, xin, bias + layer * D, j * NH, tw, mask_of(layer), NCONS);
+      epilogue<false, true>(d, act, xin, bias + layer * D, j * NH, tw, mask_of(layer));
     fence_proxy_async();
     named_sync<NCONS>();
   }
@@ -252,7 +251,7 @@ __global__ void __launch_bounds__(NT, 1)
   named_sync<NCONS>();
 
   // ---- backward, step 8: the rank-1 start under layer 7's mask
-  start_backward(act, j * NH, tw, mask_of(7), NCONS, sdf_s, w8s);
+  start_backward(act, j * NH, tw, mask_of(7), sdf_s, w8s);
   fence_proxy_async();
   named_sync<NCONS>();
 
@@ -260,9 +259,9 @@ __global__ void __launch_bounds__(NT, 1)
   for (int i = 7; i >= 1; --i) {
     product(d, act, D / KC, ring, full, j * HALF_BYTES, t, s);
     if (i == 4)
-      backward_epilogue<true>(d, act, j * NH, tw, mask_of(i - 1), NCONS, grad, n, base);
+      backward_epilogue<true>(d, act, j * NH, tw, mask_of(i - 1), grad, n, base);
     else
-      backward_epilogue<false>(d, act, j * NH, tw, mask_of(i - 1), NCONS, grad, n, base);
+      backward_epilogue<false>(d, act, j * NH, tw, mask_of(i - 1), grad, n, base);
     fence_proxy_async();
     named_sync<NCONS>();
   }

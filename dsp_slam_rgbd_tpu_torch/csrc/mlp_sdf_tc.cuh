@@ -166,11 +166,11 @@ __device__ void load_input(uint8_t* xin, const float* __restrict__ code, int row
 // r0 = 16 warp + lane / 4, column c0 + 8j + 2 (lane % 4) + e, so both rows
 // share one swizzle and column block j sits in atom j / 8, chunk j % 8.
 // With MASKS, the ReLU mask (pre-activation > 0) of fragment element i goes
-// to bit i % 32 of word mk[(i / 32) * mk_stride].
+// to bit i % 32 of word mk[(i / 32) * NCONS].
 template <bool REINJECT, bool MASKS = false>
 __device__ __forceinline__ void epilogue(const float (&d)[128], uint8_t* out, const uint8_t* xin,
                                          const float* __restrict__ bias, int c0, int t,
-                                         uint32_t* mk = nullptr, int mk_stride = 0) {
+                                         uint32_t* mk = nullptr) {
   // Addresses are recomputed per call: hoisted out of the layer loop, they
   // would stay live beside the 128 accumulators and spill.
   asm volatile("" : "+r"(t), "+l"(out), "+l"(xin), "+l"(bias));
@@ -204,7 +204,7 @@ __device__ __forceinline__ void epilogue(const float (&d)[128], uint8_t* out, co
   }
   if (MASKS) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) mk[q * mk_stride] = words[q];
+    for (int q = 0; q < 4; ++q) mk[q * NCONS] = words[q];
   }
 }
 
