@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from `dsp_slam_rgbd_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card, drives the main
 path (batched object reconstruction at the full cars_64 decoder width,
-with the committed fixture decoder) and checks its output, then times each
-kernel at the main path's shapes.  Exits non-zero, with no result line, if
+with the committed fixture decoder) and checks its output, times each
+kernel at the main path's shapes, then drives the per-frame tracking path
+at KITTI size (phase 8).  Exits non-zero, with no result line, if
 there is no card or any phase fails.  Prints, before the last line, the
 card's name and power limit and one JSON line of kernel numbers; the last
 line is {"ok": true, "device": {...}}.  With --report, every measured
@@ -44,6 +45,29 @@ Tolerances (kernel vs plain version, same inputs, on the card):
   * bf16 vs f32: Jacobian row cosine >= 0.90, Frobenius relative <= 0.25;
   * one f32 GN iteration, kernels on the card vs plain versions on the
     CPU: pose and code atol 2e-3.
+
+Phase 8 drives the per-frame tracking path (torch ops on the card; it
+launches no kernel of the port) at KITTI size: 1241x376 uint8 images,
+fx = fy = 718.856, baseline 0.537 m, `OrbConfig()` (2,000 features, 8
+levels), `MapConfig(max_kf=48, max_feat=2048, max_pts=32768,
+local_window=8)`, `TrackingConfig(th_depth=35, max_frames_between_kf=5)`,
+the tilted-plane world of `tools/bench_pipeline.py`
+(`dsp_slam_rgbd_tpu_torch/tools/plane_world.py`):
+  * 8a: `extract_pair` and `match_stereo` of one pair on the card and on
+    the CPU: keypoints equal on >= 99% of each image, descriptors equal at
+    every common keypoint, >= 100 common stereo matches with depths within
+    1e-3 relative;
+  * 8b / 8c: 24 stereo and 12 RGB-D frames, keyframes inserted with the
+    slice's bootstrap (`drive_tracking`): >= 90% of frames OK, >= 2
+    keyframes, finite poses, and a largest translation error under
+    STEREO_BAND / RGBD_BAND, 1.5x the JAX package's own on the same driver
+    and world on the CPU (3.403762 m and 0.184759 m,
+    `JAX_PLATFORMS=cpu python tests/tracking_driver.py`): the bootstrap has
+    no triangulation or bundle adjustment, so the stereo run drifts;
+  * then per-frame times (median wall per frame, ORB extraction, stereo
+    match, the fused tracking stage, pose GN), host syncs of one frame
+    (`torch.cuda.set_sync_debug_mode`), and launches, busy time and idle
+    share of one traced frame.
 """
 import argparse
 import functools
@@ -66,6 +90,8 @@ B, N_PTS, N_RAYS, ITERS = 8, 256, 512, 10
 # bf16 kernel sweeps: around their 64-row tile, and past the main path's sizes
 VALUE_ROWS = (1, 63, 64, 65, 300, 4097, 102417)
 JAC_ROWS = (1, 63, 64, 65, 300, 2048, 2049, 8192, 8193)
+# phase 8 bands on the largest translation error (m); see the docstring
+STEREO_BAND, RGBD_BAND = 5.1, 0.28
 # (bf16 dense tensor-core FLOP/s, memory bytes/s): NVIDIA data sheets
 PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H200": (989e12, 4.8e12), "H100": (989e12, 3.35e12)}
 
@@ -182,6 +208,234 @@ def hold_bf16_jacobian(mlp_sdf, wb, tiles, code, xyz, tag):
           and case["jac_err_own_masks_agreeing_rows"] <= BF16_JAC_FROB
           and case["tie_pre_max"] < BF16_TIE and n_differ <= 8 + n_rows // 5, f"{tag}: {case}")
     return s_k, g_k, g_m, case
+
+
+def _median(xs):
+    return float(np.median(xs)) if len(xs) else float("nan")
+
+
+def drive_tracking(world, texture, sensor, n, dev, frame_ms=None):
+    """Phase 8's driver: the port's tracker over n frames of the tilted-
+    plane world, inserting a keyframe with the slice's bootstrap
+    (`insert_keyframe` + `spawn_depth_points` + `update_point_geometry`,
+    the stereo subset of the JAX package's `kf_point_stage`) whenever it
+    returns `new_kf`; the same driver as tests/tracking_driver.py.
+    frame_ms, when given, receives (untraced wall ms of the frame with its
+    keyframe insertion, whether it made a keyframe).  -> (tracker, KFs)."""
+    from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
+    from dsp_slam_rgbd_tpu_torch.mapping import map_state as ms
+    from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw
+    from dsp_slam_rgbd_tpu_torch.tracking import tracker as trk
+
+    cfg = tracking_config(world, sensor)
+    m = cfg.map
+    tr = trk.Tracker(cfg, ms.empty(max_kf=m.max_kf, max_feat=m.max_feat, max_pts=m.max_pts,
+                                   max_obj=m.max_obj, max_oobs=m.max_oobs, device=dev),
+                     device=dev)
+    kf_valid = np.zeros(m.max_kf, bool)
+    n_kf = 0
+    th_depth_m = cfg.tracking.th_depth * cfg.cam.bf / cfg.cam.fx
+    for i in range(n):
+        x = pw.gt_x(world, i)
+        left = pw.render_u8(world, texture, x)
+        right = pw.render_u8(world, texture, x + world.baseline) if sensor == "stereo" else None
+        depth = pw.depth_map(world, x) if sensor == "rgbd" else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tr.track(left, img_right=right, depth_map=depth, timestamp=i * 0.1)[-1]
+        if out["new_kf"]:
+            slot = int(ms.alloc_slots(kf_valid, 1)[0])
+            if slot >= 0:
+                kf_valid[slot] = True
+                st = lm.insert_keyframe(tr.state, out["frame"], slot, out["fid"])
+                st = lm.spawn_depth_points(st, cfg.cam, slot, out["frame"], th_depth_m,
+                                           first_id=n_kf)
+                tr.state = lm.update_point_geometry(st)
+                n_kf += 1
+                tr.last_kf_frame_id = out["fid"]
+                if tr.ref_kf < 0:
+                    tr.ref_kf = slot
+        torch.cuda.synchronize()
+        if frame_ms is not None:
+            frame_ms.append(((time.perf_counter() - t0) * 1e3, bool(out["new_kf"])))
+    return tr, n_kf
+
+
+def tracking_config(world, sensor):
+    """`tools/bench_pipeline.py:91-117`'s tracking configuration for `world`."""
+    from dsp_slam_rgbd_tpu_torch import config
+    from dsp_slam_rgbd_tpu_torch.frontend.orb import OrbConfig
+    from dsp_slam_rgbd_tpu_torch.ops.camera import Intrinsics
+
+    cam = Intrinsics(fx=world.fx, fy=world.fx, cx=world.cx, cy=world.cy,
+                     bf=world.fx * world.baseline)
+    return config.SystemConfig(
+        sensor=sensor, cam=cam, orb=OrbConfig(),
+        tracking=config.TrackingConfig(fps=10.0, th_depth=35.0, max_frames_between_kf=5),
+        map=config.MapConfig(max_kf=48, max_feat=2048, max_pts=32768, max_obj=8,
+                             max_oobs=256, local_window=8))
+
+
+def wall_ms(fn, reps):
+    """Mean wall time of fn over reps calls, each ended by a synchronize
+    (host-driven work: the launches and host reads are part of its time)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def tracking_phase(dev, smi):
+    """Phase 8: the per-frame tracking path at KITTI size (see the module
+    docstring) -> the report's "tracking" entry."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsp_slam_rgbd_tpu_torch.frontend import orb, stereo
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
+    from dsp_slam_rgbd_tpu_torch.solvers import pose_gn
+    from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw
+    from dsp_slam_rgbd_tpu_torch.tracking import tracker as trk
+
+    t_phase = time.perf_counter()
+    world = pw.KITTI
+    texture = pw.make_texture(world)
+    rep = {"card": smi}
+    bf = world.fx * world.baseline
+    cfg_orb = orb.OrbConfig()
+
+    # ---- 8a. frontend on the card against the same port code on the CPU
+    left = pw.render_u8(world, texture, 0.0)
+    right = pw.render_u8(world, texture, world.baseline)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        il, ir = orb.to_image(left, d), orb.to_image(right, d)
+        fl, fr = orb.extract_pair(il, ir, cfg_orb, device=d)
+        sm = stereo.match_stereo(fl, fr, il, ir, bf, min_z=bf / world.fx)
+        res.append([t.cpu() for t in (fl.xy, fl.valid, fl.desc, fr.xy, fr.valid, fr.desc,
+                                      sm.valid, sm.depth)])
+    g, c = res
+    same = [((g[i] == c[i]).all(1) & (g[i + 1] == c[i + 1])) for i in (0, 3)]
+    kp_eq = [float(s.float().mean()) for s in same]
+    desc_bad = [int((g[i + 2][s & g[i + 1]] != c[i + 2][s & g[i + 1]]).any(1).sum())
+                for i, s in zip((0, 3), same)]
+    common = g[6] & c[6] & same[0]
+    depth_rel = float(((g[7] - c[7]).abs() / c[7])[common].max())
+    rep["frontend_vs_cpu"] = {"keypoints_equal": kp_eq, "descriptors_differing": desc_bad,
+                              "stereo_common": int(common.sum()), "stereo_valid_card": int(g[6].sum()),
+                              "stereo_valid_cpu": int(c[6].sum()), "depth_rel_err": depth_rel}
+    check(min(kp_eq) >= 0.99 and sum(desc_bad) == 0 and int(common.sum()) >= 100
+          and depth_rel <= 1e-3, f"8a frontend on the card vs the CPU: {rep['frontend_vs_cpu']}")
+    print(f"phase 8a frontend card vs CPU (KITTI 1241x376 pair, 2000 features, 8 levels): "
+          f"keypoints equal {kp_eq[0]:.4f} / {kp_eq[1]:.4f} (left / right), descriptors "
+          f"differing at common keypoints {desc_bad}, stereo matches {int(g[6].sum())} card / "
+          f"{int(c[6].sum())} CPU, {int(common.sum())} common, largest depth difference "
+          f"{depth_rel:.3g} relative", flush=True)
+
+    # ---- 8b / 8c. stereo and RGB-D sequences (the counts of the decoder
+    # kernels are read around them: the tracking path launches none)
+    for tag, sensor, n, band in (("8b", "stereo", 24, STEREO_BAND), ("8c", "rgbd", 12, RGBD_BAND)):
+        mlp_sdf.reset_launch_counts()
+        frame_ms = []
+        tr, n_kf = drive_tracking(world, texture, sensor, n, dev, frame_ms)
+        launches = dict(mlp_sdf.LAUNCHES)
+        ok = np.array([bool(o) for _, _, o in tr.trajectory])
+        T = np.stack([p.cpu().numpy() for _, p, _ in tr.trajectory]).astype(np.float64)
+        gt = np.array([pw.gt_x(world, int(round(ts / 0.1))) for ts, _, _ in tr.trajectory])
+        err = np.abs(-T[:, 0, 3] - gt)
+        max_err = float(err[ok].max()) if ok.any() else float("inf")
+        seq = {"frames": n, "tracked": len(ok), "ok_share": float(ok.mean()), "keyframes": n_kf,
+               "max_t_err_m": max_err, "band_m": band, "t_err_m": err.tolist(),
+               "decoder_kernel_launches": launches,
+               "frame_ms_track_only_median": _median([t for t, k in frame_ms[1:] if not k]),
+               "frame_ms_keyframe_median": _median([t for t, k in frame_ms[1:] if k]),
+               "frame_ms_first": frame_ms[0][0]}
+        rep[sensor] = seq
+        check(len(ok) == n and ok.mean() >= 0.9 and n_kf >= 2 and np.isfinite(T).all()
+              and max_err < band, f"{tag} {sensor} sequence: {seq}")
+        print(f"phase {tag} {sensor} sequence: {n} frames, ok {ok.mean():.3f}, {n_kf} keyframes, "
+              f"largest translation error {max_err:.4f} m (band {band} m); median ms per frame "
+              f"{seq['frame_ms_track_only_median']:.1f} tracking-only, "
+              f"{seq['frame_ms_keyframe_median']:.1f} with a keyframe (first frame "
+              f"{seq['frame_ms_first']:.0f} ms); decoder kernels launched {launches} on {smi}",
+              flush=True)
+
+    # ---- per-part times, syncs, launches, busy: on the stereo tracker,
+    # frames past the checked sequence (the state they leave is not read)
+    tr, _ = drive_tracking(world, texture, "stereo", 6, dev)
+    nxt = pw.gt_x(world, 6)
+    img_l = pw.render_u8(world, texture, nxt)
+    img_r = pw.render_u8(world, texture, nxt + world.baseline)
+    il, ir = orb.to_image(img_l, dev), orb.to_image(img_r, dev)
+    fl, fr = orb.extract_pair(il, ir, cfg_orb)
+    frame = tr.make_frame(img_l, img_r, timestamp=0.6)
+    lf, cam = tr.last_frame, tr.cfg.cam
+
+    def fused():
+        return trk._track_frame_fused(
+            cam, tr.state, lf.t_cw, tr.velocity, frame.feats.xy, frame.feats.desc,
+            frame.feats.level, frame.feats.valid, frame.feats.angle, frame.ur, frame.depth,
+            lf.pt_idx, lf.feats.angle, 7.0, tr._th_depth_m(), tr.cfg.map.local_window, True)
+
+    t_cw, pt_idx, stats, _, _ = fused()
+    pts_w = tr.state.pt_pos[torch.clamp_min(pt_idx, 0).long()]
+    obs = torch.cat([frame.feats.xy, frame.ur[:, None]], -1)
+    inv_s2 = 1.0 / (1.2 ** (2.0 * frame.feats.level.float()))
+    matched = (pt_idx >= 0) & frame.feats.valid
+    parts = {
+        "orb_extract_ms_per_image": wall_ms(lambda: orb.extract(il, cfg_orb), 5),
+        "stereo_match_ms": wall_ms(lambda: stereo.match_stereo(fl, fr, il, ir, bf,
+                                                                min_z=bf / world.fx), 5),
+        "fused_tracking_ms": wall_ms(fused, 5),
+        "pose_gn_ms": wall_ms(lambda: pose_gn.optimize_pose(cam, lf.t_cw, pts_w, obs, inv_s2,
+                                                            matched, stereo=True), 5),
+        "fused_stats": stats.tolist()}
+
+    def one_frame(i):
+        x = pw.gt_x(world, i)
+        tr.track(pw.render_u8(world, texture, x), img_right=pw.render_u8(
+            world, texture, x + world.baseline), timestamp=i * 0.1)
+        torch.cuda.synchronize()
+
+    one_frame(6)
+    t0 = time.perf_counter()
+    one_frame(7)
+    untraced = (time.perf_counter() - t0) * 1e3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            one_frame(8)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        one_frame(9)
+    kern = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    check(busy > 0, "the profiler saw device time in a tracking frame")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        pose_gn.optimize_pose(cam, lf.t_cw, pts_w, obs, inv_s2, matched, stereo=True)
+        torch.cuda.synchronize()
+    gn_launches = sum(1 for e in p.events() if e.device_type == DeviceType.CUDA)
+    parts.update({"frame_ms_untraced": untraced, "host_syncs_per_frame": syncs,
+                  "kernel_launches_per_frame": len(kern), "busy_ms": busy,
+                  "idle_share": 1.0 - busy / untraced, "pose_gn_launches": gn_launches})
+    rep["per_frame"] = parts
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 8 per frame (stereo, KITTI size): ORB extraction {parts['orb_extract_ms_per_image']:.2f}"
+          f" ms per image, stereo match {parts['stereo_match_ms']:.2f} ms, fused tracking stage "
+          f"{parts['fused_tracking_ms']:.2f} ms, pose GN {parts['pose_gn_ms']:.2f} ms; one frame "
+          f"{untraced:.1f} ms untraced: {len(kern)} kernel launches ({gn_launches} in one pose GN "
+          f"call), {syncs} host syncs, device busy {busy:.2f} ms (idle share "
+          f"{parts['idle_share']:.3f}); phase 8 took "
+          f"{rep['phase_s']:.0f} s; on {smi}", flush=True)
+    return rep
 
 
 def main(argv=None):
@@ -464,6 +718,9 @@ def main(argv=None):
           + ", ".join(f"{t['l2_bytes'] / 1e9:.3f} GB = {t['l2_tb_per_s']:.2f} TB/s, "
                       f"{t['us_per_stage']:.3f} us per stage at {t['rows']} rows"
                       for t in (t_jac, t_jac_sdf)), flush=True)
+    # ---- 8. per-frame tracking at KITTI size
+    report["tracking"] = tracking_phase(dev, smi)
+
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "rows", "dtype")
     kernels = [

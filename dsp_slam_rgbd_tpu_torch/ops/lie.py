@@ -184,12 +184,11 @@ def log_sim3(T: torch.Tensor) -> torch.Tensor:
 
 
 def _rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    batch = R.shape[:-2]
-    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
-    return T
+    # assembled by concatenation: writing the scalar 1 into a view would
+    # copy it from the host and block the host on the card
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.nn.functional.pad(torch.zeros_like(top[..., :1, :3]), (0, 1), value=1.0)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
