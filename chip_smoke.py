@@ -214,14 +214,14 @@ def _median(xs):
     return float(np.median(xs)) if len(xs) else float("nan")
 
 
-def drive_tracking(world, texture, sensor, n, dev, frame_ms=None):
+def drive_tracking(world, texture, sensor, n, dev):
     """Phase 8's driver: the port's tracker over n frames of the tilted-
     plane world, inserting a keyframe with the slice's bootstrap
     (`insert_keyframe` + `spawn_depth_points` + `update_point_geometry`,
     the stereo subset of the JAX package's `kf_point_stage`) whenever it
     returns `new_kf`; the same driver as tests/tracking_driver.py.
-    frame_ms, when given, receives (untraced wall ms of the frame with its
-    keyframe insertion, whether it made a keyframe).  -> (tracker, KFs)."""
+    -> (tracker, keyframe count, [(untraced wall ms of each frame with its
+    keyframe insertion, whether it made a keyframe)])."""
     from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
     from dsp_slam_rgbd_tpu_torch.mapping import map_state as ms
     from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw
@@ -234,6 +234,7 @@ def drive_tracking(world, texture, sensor, n, dev, frame_ms=None):
                      device=dev)
     kf_valid = np.zeros(m.max_kf, bool)
     n_kf = 0
+    frame_ms = []
     th_depth_m = cfg.tracking.th_depth * cfg.cam.bf / cfg.cam.fx
     for i in range(n):
         x = pw.gt_x(world, i)
@@ -256,9 +257,8 @@ def drive_tracking(world, texture, sensor, n, dev, frame_ms=None):
                 if tr.ref_kf < 0:
                     tr.ref_kf = slot
         torch.cuda.synchronize()
-        if frame_ms is not None:
-            frame_ms.append(((time.perf_counter() - t0) * 1e3, bool(out["new_kf"])))
-    return tr, n_kf
+        frame_ms.append(((time.perf_counter() - t0) * 1e3, bool(out["new_kf"])))
+    return tr, n_kf, frame_ms
 
 
 def tracking_config(world, sensor):
@@ -335,14 +335,13 @@ def tracking_phase(dev, smi):
           f"keypoints equal {kp_eq[0]:.4f} / {kp_eq[1]:.4f} (left / right), descriptors "
           f"differing at common keypoints {desc_bad}, stereo matches {int(g[6].sum())} card / "
           f"{int(c[6].sum())} CPU, {int(common.sum())} common, largest depth difference "
-          f"{depth_rel:.3g} relative", flush=True)
+          f"{depth_rel:.3g} relative on {smi}", flush=True)
 
     # ---- 8b / 8c. stereo and RGB-D sequences (the counts of the decoder
     # kernels are read around them: the tracking path launches none)
     for tag, sensor, n, band in (("8b", "stereo", 24, STEREO_BAND), ("8c", "rgbd", 12, RGBD_BAND)):
         mlp_sdf.reset_launch_counts()
-        frame_ms = []
-        tr, n_kf = drive_tracking(world, texture, sensor, n, dev, frame_ms)
+        tr, n_kf, frame_ms = drive_tracking(world, texture, sensor, n, dev)
         launches = dict(mlp_sdf.LAUNCHES)
         ok = np.array([bool(o) for _, _, o in tr.trajectory])
         T = np.stack([p.cpu().numpy() for _, p, _ in tr.trajectory]).astype(np.float64)
@@ -367,7 +366,7 @@ def tracking_phase(dev, smi):
 
     # ---- per-part times, syncs, launches, busy: on the stereo tracker,
     # frames past the checked sequence (the state they leave is not read)
-    tr, _ = drive_tracking(world, texture, "stereo", 6, dev)
+    tr, _, _ = drive_tracking(world, texture, "stereo", 6, dev)
     nxt = pw.gt_x(world, 6)
     img_l = pw.render_u8(world, texture, nxt)
     img_r = pw.render_u8(world, texture, nxt + world.baseline)

@@ -124,8 +124,6 @@ def empty(max_kf: int = 64, max_feat: int = 1024, max_pts: int = 8192,
 
 def alloc_slots(valid_mask, n: int) -> np.ndarray:
     """Host-side: first n free slot indices (−1 padding if full)."""
-    if isinstance(valid_mask, torch.Tensor):
-        valid_mask = valid_mask.cpu().numpy()
     free = np.nonzero(~np.asarray(valid_mask))[0]
     out = np.full(n, -1, np.int64)
     out[: min(n, len(free))] = free[:n]

@@ -462,9 +462,6 @@ class Tracker:
         return True
 
     # ------------------------------------------------------------------
-    def _stereo(self) -> bool:
-        return self.cfg.sensor in ("stereo", "rgbd")
-
     def _th_depth_m(self) -> float:
         cam = self.cfg.cam
         return cam.bf / max(cam.fx, 1e-9) * self.cfg.tracking.th_depth
@@ -489,8 +486,7 @@ class Tracker:
             frame.feats.xy, frame.feats.desc, frame.feats.level,
             frame.feats.valid, frame.feats.angle, frame.ur, frame.depth,
             lf.pt_idx, lf.feats.angle, radius, self._th_depth_m(),
-            self.cfg.map.local_window, check_rotation, self._stereo(),
-            update_stats)
+            self.cfg.map.local_window, check_rotation, True, update_stats)
         stats = _fetch(stats)  # the single per-stage host sync
         self._warn_local_overflow(stats)
         if update_stats:
@@ -542,8 +538,7 @@ class Tracker:
             frame.feats.xy, frame.feats.desc, frame.feats.level,
             frame.feats.valid, frame.feats.angle, frame.ur, frame.depth,
             lf.pt_idx, lf.feats.angle, radius, self._th_depth_m(),
-            self.cfg.map.local_window, self._stereo(),
-            pre_fetch=self.pre_fetch_hook)
+            self.cfg.map.local_window, True, pre_fetch=self.pre_fetch_hook)
         # ref KF = top covisibility voter, stage 2's when it ran
         if stats[9] >= 0:
             self.ref_kf = int(stats[9])

@@ -35,18 +35,11 @@ def decoder_from_numpy(layers, spec: DecoderSpec,
     return DeepSDFDecoder(DecoderSpec(*spec), pairs).to(dev)
 
 
-def _fields(obj, names):
-    """Field values of a mapping or of an object with those attributes."""
-    if isinstance(obj, dict):
-        return [obj[n] for n in names]
-    return [getattr(obj, n) for n in names]
-
-
 def _to_tensor(a, dev) -> torch.Tensor:
-    a = np.asarray(a)
+    a = np.array(a)  # a copy: arrays from JAX are read-only
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return torch.from_numpy(a).to(dev)
 
 
 def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
@@ -55,10 +48,10 @@ def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
 
 
 def map_state_from_numpy(fields, device="cuda") -> MapState:
-    """A JAX `MapState` as numpy arrays (a dict or an object with the
-    fields) -> the port's `MapState` on `device`."""
+    """{field: numpy array} of a JAX `MapState` -> the port's `MapState` on
+    `device`."""
     dev = device_mod.resolve(device)
-    return MapState(*[_to_tensor(a, dev) for a in _fields(fields, MapState._fields)])
+    return MapState(*[_to_tensor(fields[n], dev) for n in MapState._fields])
 
 
 def map_state_to_numpy(state: MapState) -> dict:
@@ -69,7 +62,7 @@ def map_state_to_numpy(state: MapState) -> dict:
 
 def features_from_numpy(fields, device="cuda") -> Features:
     dev = device_mod.resolve(device)
-    return Features(*[_to_tensor(a, dev) for a in _fields(fields, Features._fields)])
+    return Features(*[_to_tensor(fields[n], dev) for n in Features._fields])
 
 
 def features_to_numpy(feats: Features) -> dict:
@@ -77,13 +70,12 @@ def features_to_numpy(feats: Features) -> dict:
 
 
 def frame_from_numpy(frame, device="cuda") -> Frame:
-    """A JAX tracker `Frame` (features as numpy fields, arrays, timestamp)
-    -> the port's `Frame` on `device`."""
+    """{"feats": {field: array}, "ur", "depth", "t_cw", "pt_idx": arrays,
+    "timestamp"} of a JAX tracker `Frame` -> the port's `Frame` on `device`."""
     dev = device_mod.resolve(device)
-    feats, ur, depth, t_cw, pt_idx, ts = _fields(frame, Frame._fields)
-    return Frame(features_from_numpy(feats, dev), _to_tensor(ur, dev),
-                 _to_tensor(depth, dev), _to_tensor(t_cw, dev),
-                 _to_tensor(pt_idx, dev), float(ts))
+    return Frame(features_from_numpy(frame["feats"], dev),
+                 *[_to_tensor(frame[n], dev) for n in ("ur", "depth", "t_cw", "pt_idx")],
+                 float(frame["timestamp"]))
 
 
 def frame_to_numpy(frame: Frame) -> dict:

@@ -66,7 +66,7 @@ def _np_fields(nt):
 
 
 def t(a):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+    return torch.from_numpy(np.array(np.asarray(a)))  # a copy: arrays from JAX are read-only
 
 
 @pytest.mark.parametrize("shape", [(160, 224), (97, 131)])

@@ -8,12 +8,15 @@ outliers) pose 1e-4 and the same inliers; the `MapState` round trip,
 covisibility rows and the local window exact; the bootstrap functions
 1e-5; `_dlt_pnp`/`_planar_pnp` on fixed samples 1e-3; `solve_pnp_ransac`
 recovers a noiseless pose to 1e-3 in both packages (their trial samples
-differ); `_track_stage_core` equal stats and pose 1e-4.  The 10-frame
+differ); `_track_stage_core` and the motion-model stage equal stats and
+pose 1e-4; the fallback chain (reference keyframe 1e-4, relocalization
+and the local-map stage after it 1e-3, the same matches).  The 10-frame
 stereo and RGB-D sequences run through both packages with the same
 keyframe bootstrap (tests/tracking_driver.py): each ≥ 80% of frames OK and
 largest error < 0.08 m (the bands of tests/test_rgbd_e2e.py), the two
 trajectories within 1e-2 m frame by frame.
 """
+import copy
 import dataclasses
 import os
 import tempfile
@@ -355,6 +358,64 @@ def test_track_stage_core_matches_jax(runs):
         if upd:
             np.testing.assert_array_equal(ot[3].numpy(), np.asarray(oj[3]))
             np.testing.assert_array_equal(ot[4].numpy(), np.asarray(oj[4]))
+
+
+def _twin_trackers(runs, i):
+    """(JAX tracker, port tracker, JAX frame, port frame): a copy of the
+    stereo run's JAX tracker after 10 frames (the fixture's stays as it
+    is), a port tracker in the same state (map, last frame, reference KF,
+    status, motion model) and frame i of the world in both packages."""
+    jtrk = copy.copy(runs["stereo"]["jax"][0])
+    ttrk = ttr.Tracker(port_config(make_cfg()),
+                       map_state_from_numpy(_np_state(jtrk.state), "cpu"), device="cpu")
+    ttrk.last_frame = frame_from_numpy(_np_frame(jtrk.last_frame), "cpu")
+    ttrk.ref_kf, ttrk.status, ttrk.velocity = jtrk.ref_kf, jtrk.status, t(jtrk.velocity)
+    x = pw.gt_x(WORLD, i)
+    tex = pw.make_texture(WORLD)
+    jframe = jtrk.make_frame(pw.render(WORLD, tex, x), pw.render(WORLD, tex, x + WORLD.baseline),
+                             timestamp=i * 0.1)
+    return jtrk, ttrk, jframe, frame_from_numpy(_np_frame(jframe), "cpu")
+
+
+def test_motion_model_stage_matches_jax(runs):
+    """`_track_motion_model`, the motion-model stage on its own with its
+    doubled-window retry, from the same state and frame: the same verdict,
+    stats and matches, pose 1e-4."""
+    jtrk, ttrk, jframe, tframe = _twin_trackers(runs, 10)
+    fj, okj = jtrk._track_motion_model(jframe)
+    ft, okt = ttrk._track_motion_model(tframe)
+    assert okj and okt
+    np.testing.assert_array_equal(ttrk._stage_stats, np.asarray(jtrk._stage_stats))
+    np.testing.assert_allclose(ft.t_cw.numpy(), np.asarray(fj.t_cw), atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(ft.pt_idx.numpy(), np.asarray(fj.pt_idx))
+    assert ttrk.ref_kf == jtrk.ref_kf
+
+
+def test_fallback_chain_matches_jax(runs):
+    """The branches taken when the motion model fails, from the same state
+    and frame: reference-keyframe tracking (deterministic: pose 1e-4, the
+    same matches), PnP relocalization over the recent keyframes (their
+    trial samples differ, the refined poses agree to 1e-3, both within the
+    sequence band of the true pose) and the local-map stage after it (pose
+    1e-3, the same inlier count and matches)."""
+    jtrk, ttrk, jframe, tframe = _twin_trackers(runs, 11)
+    fj, okj = jtrk._track_reference_kf(jframe)
+    ft, okt = ttrk._track_reference_kf(tframe)
+    assert okj and okt
+    np.testing.assert_allclose(ft.t_cw.numpy(), np.asarray(fj.t_cw), atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(ft.pt_idx.numpy(), np.asarray(fj.pt_idx))
+
+    x_true = pw.gt_x(WORLD, 11)
+    fj, okj = jtrk._relocalize(jframe)
+    ft, okt = ttrk._relocalize(tframe)
+    assert okj and okt
+    np.testing.assert_allclose(ft.t_cw.numpy(), np.asarray(fj.t_cw), atol=1e-3, rtol=0)
+    assert abs(-float(ft.t_cw[0, 3]) - x_true) < 0.08
+    fj, nj = jtrk._track_local_map(fj)
+    ft, nt = ttrk._track_local_map(ft)
+    assert nt == nj >= 25
+    np.testing.assert_allclose(ft.t_cw.numpy(), np.asarray(fj.t_cw), atol=1e-3, rtol=0)
+    np.testing.assert_array_equal(ft.pt_idx.numpy(), np.asarray(fj.pt_idx))
 
 
 # ----------------------------------------------------------------- tracker
