@@ -8,11 +8,12 @@ holds each against its plain PyTorch version on the card, drives the main
 path (batched object reconstruction at the full cars_64 decoder width,
 with the committed fixture decoder) and checks its output, times each
 kernel at the main path's shapes, then drives the per-frame tracking path
-at KITTI size (phase 8).  Exits non-zero, with no result line, if
-there is no card or any phase fails.  Prints, before the last line, the
-card's name and power limit and one JSON line of kernel numbers; the last
-line is {"ok": true, "device": {...}}.  With --report, every measured
-number also goes to that JSON file.
+and the keyframe stage at KITTI size (phases 8 and 9a) and bundle
+adjustment at KITTI-00 scale (phases 9b and 9c).  Exits non-zero, with no
+result line, if there is no card or any phase fails.  Prints, before the
+last line, the card's name and power limit and one JSON line of kernel
+numbers; the last line is {"ok": true, "device": {...}}.  With --report,
+every measured number also goes to that JSON file.
 
 Phase 2 also counts the tensor-core (HGMMA) instructions in the SASS of
 both bf16 kernels (value and Jacobian) and fails if there are none or if
@@ -46,28 +47,44 @@ Tolerances (kernel vs plain version, same inputs, on the card):
   * one f32 GN iteration, kernels on the card vs plain versions on the
     CPU: pose and code atol 2e-3.
 
-Phase 8 drives the per-frame tracking path (torch ops on the card; it
-launches no kernel of the port) at KITTI size: 1241x376 uint8 images,
-fx = fy = 718.856, baseline 0.537 m, `OrbConfig()` (2,000 features, 8
-levels), `MapConfig(max_kf=48, max_feat=2048, max_pts=32768,
-local_window=8)`, `TrackingConfig(th_depth=35, max_frames_between_kf=5)`,
-the tilted-plane world of `tools/bench_pipeline.py`
+Phase 8 drives the per-frame tracking path, and phase 9 the keyframe
+stage and bundle adjustment (torch ops on the card; they launch no
+kernel of the port), at KITTI size: 1241x376 uint8 images, fx = fy =
+718.856, baseline 0.537 m, `OrbConfig()` (2,000 features, 8 levels),
+`MapConfig(max_kf=48, max_feat=2048, max_pts=32768, local_window=8)`,
+`TrackingConfig(th_depth=35, max_frames_between_kf=5)`, the tilted-plane
+world of `tools/bench_pipeline.py`
 (`dsp_slam_rgbd_tpu_torch/tools/plane_world.py`):
   * 8a: `extract_pair` and `match_stereo` of one pair on the card and on
     the CPU: keypoints equal on >= 99% of each image, descriptors equal at
     every common keypoint, >= 100 common stereo matches with depths within
     1e-3 relative;
-  * 8b / 8c: 24 stereo and 12 RGB-D frames, keyframes inserted with the
-    slice's bootstrap (`drive_tracking`): >= 90% of frames OK, >= 2
-    keyframes, finite poses, and a largest translation error under
-    STEREO_BAND / RGBD_BAND, 1.5x the JAX package's own on the same driver
-    and world on the CPU (3.403762 m and 0.184759 m,
-    `JAX_PLATFORMS=cpu python tests/tracking_driver.py`): the bootstrap has
-    no triangulation or bundle adjustment, so the stereo run drifts;
-  * then per-frame times (median wall per frame, ORB extraction, stereo
-    match, the fused tracking stage, pose GN), host syncs of one frame
+  * 8b / 8c: 24 stereo and 12 RGB-D frames with the full keyframe stage
+    (`drive_tracking`: `kf_point_stage`, then `local_ba_and_cull_step`):
+    >= 90% of frames OK, >= 2 keyframes, finite poses, at least one
+    keyframe culled in the stereo run, and a largest translation error
+    under STEREO_BAND / RGBD_BAND, 1.5x the JAX package's own on the same
+    driver and world on the CPU (0.110393 m and 0.184753 m with 10 and 6
+    keyframes, the stereo run culling slots 2 and 1; with the keyframe
+    bootstrap alone, 3.403762 m and 0.184759 m:
+    `JAX_PLATFORMS=cpu python tests/tracking_driver.py`); median ms per
+    frame and per keyframe stage;
+  * then per-frame times (ORB extraction, stereo match, the fused tracking
+    stage, pose GN), host syncs of one frame
     (`torch.cuda.set_sync_debug_mode`), and launches, busy time and idle
-    share of one traced frame.
+    share of one traced frame, on the frames after 8b's;
+  * 9a: one more keyframe stage on 8b's map: host syncs of the stage,
+    launches, busy time and idle share of each half, the BA window's size;
+  * 9b: BA on the KITTI-00-scale corridor map (`tools/corridor_map.py`:
+    1,000 keyframes, 200,000 points), tests/test_ba_scale.py's criteria:
+    local BA at keyframes 10, 500 and 990 with B <= 64 and the mean
+    reprojection error cut below 0.7x; one `global_ba_pcg(n_iters=6)`
+    with B >= 1,000, every live observation (> 150,000) in the problem, a
+    finite result and the error cut below 0.5x; ms and launches of each;
+  * 9c: the card against the CPU on the same problems: one LM step of each
+    local problem within 1e-4 (poses and points), and on the 24-keyframe
+    corridor the dense and PCG solvers each within 0.03 m of the truth
+    and within 5e-3 of each other on both, card and CPU within 5e-3.
 """
 import argparse
 import functools
@@ -91,7 +108,7 @@ B, N_PTS, N_RAYS, ITERS = 8, 256, 512, 10
 VALUE_ROWS = (1, 63, 64, 65, 300, 4097, 102417)
 JAC_ROWS = (1, 63, 64, 65, 300, 2048, 2049, 8192, 8193)
 # phase 8 bands on the largest translation error (m); see the docstring
-STEREO_BAND, RGBD_BAND = 5.1, 0.28
+STEREO_BAND, RGBD_BAND = 0.166, 0.277
 # (bf16 dense tensor-core FLOP/s, memory bytes/s): NVIDIA data sheets
 PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H200": (989e12, 4.8e12), "H100": (989e12, 3.35e12)}
 
@@ -216,12 +233,13 @@ def _median(xs):
 
 def drive_tracking(world, texture, sensor, n, dev):
     """Phase 8's driver: the port's tracker over n frames of the tilted-
-    plane world, inserting a keyframe with the slice's bootstrap
-    (`insert_keyframe` + `spawn_depth_points` + `update_point_geometry`,
-    the stereo subset of the JAX package's `kf_point_stage`) whenever it
-    returns `new_kf`; the same driver as tests/tracking_driver.py.
-    -> (tracker, keyframe count, [(untraced wall ms of each frame with its
-    keyframe insertion, whether it made a keyframe)])."""
+    plane world with the full keyframe stage whenever it returns `new_kf`
+    (`kf_point_stage`, then `local_ba_and_cull_step` over the local
+    window; culled slots leave the host's keyframe mask): the "full" stage
+    of tests/tracking_driver.py.  -> (tracker, keyframe count, culled
+    slots, [(untraced wall ms of each frame with its keyframe stage,
+    whether it made a keyframe)], [(ms of kf_point_stage, ms of
+    local_ba_and_cull_step) per keyframe])."""
     from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
     from dsp_slam_rgbd_tpu_torch.mapping import map_state as ms
     from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw
@@ -234,7 +252,7 @@ def drive_tracking(world, texture, sensor, n, dev):
                      device=dev)
     kf_valid = np.zeros(m.max_kf, bool)
     n_kf = 0
-    frame_ms = []
+    culled, frame_ms, kf_ms = [], [], []
     th_depth_m = cfg.tracking.th_depth * cfg.cam.bf / cfg.cam.fx
     for i in range(n):
         x = pw.gt_x(world, i)
@@ -248,17 +266,25 @@ def drive_tracking(world, texture, sensor, n, dev):
             slot = int(ms.alloc_slots(kf_valid, 1)[0])
             if slot >= 0:
                 kf_valid[slot] = True
-                st = lm.insert_keyframe(tr.state, out["frame"], slot, out["fid"])
-                st = lm.spawn_depth_points(st, cfg.cam, slot, out["frame"], th_depth_m,
-                                           first_id=n_kf)
-                tr.state = lm.update_point_geometry(st)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                st = lm.kf_point_stage(tr.state, cfg.cam, slot, out["frame"], out["fid"],
+                                       th_depth_m, n_kf, True, n_neighbors=10, min_obs_after=4)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                st, gone = lm.local_ba_and_cull_step(st, cfg.cam, slot, m.local_window)
+                torch.cuda.synchronize()
+                kf_ms.append(((t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3))
+                kf_valid[gone] = False
+                culled += gone
+                tr.state = st
                 n_kf += 1
                 tr.last_kf_frame_id = out["fid"]
                 if tr.ref_kf < 0:
                     tr.ref_kf = slot
         torch.cuda.synchronize()
         frame_ms.append(((time.perf_counter() - t0) * 1e3, bool(out["new_kf"])))
-    return tr, n_kf, frame_ms
+    return tr, n_kf, culled, frame_ms, kf_ms
 
 
 def tracking_config(world, sensor):
@@ -289,13 +315,9 @@ def wall_ms(fn, reps):
 
 
 def tracking_phase(dev, smi):
-    """Phase 8: the per-frame tracking path at KITTI size (see the module
-    docstring) -> the report's "tracking" entry."""
-    import warnings
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Phases 8 and 9a: the per-frame tracking path and the keyframe stage
+    at KITTI size (see the module docstring) -> the report's "tracking"
+    entry."""
     from dsp_slam_rgbd_tpu_torch.frontend import orb, stereo
     from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
     from dsp_slam_rgbd_tpu_torch.solvers import pose_gn
@@ -337,42 +359,51 @@ def tracking_phase(dev, smi):
           f"{int(c[6].sum())} CPU, {int(common.sum())} common, largest depth difference "
           f"{depth_rel:.3g} relative on {smi}", flush=True)
 
-    # ---- 8b / 8c. stereo and RGB-D sequences (the counts of the decoder
-    # kernels are read around them: the tracking path launches none)
+    # ---- 8b / 8c. stereo and RGB-D sequences with the full keyframe stage
+    # (the counts of the decoder kernels are read around them: the tracking
+    # path launches none)
+    trackers = {}
     for tag, sensor, n, band in (("8b", "stereo", 24, STEREO_BAND), ("8c", "rgbd", 12, RGBD_BAND)):
         mlp_sdf.reset_launch_counts()
-        tr, n_kf, frame_ms = drive_tracking(world, texture, sensor, n, dev)
+        tr, n_kf, culled, frame_ms, kf_ms = drive_tracking(world, texture, sensor, n, dev)
         launches = dict(mlp_sdf.LAUNCHES)
+        trackers[sensor] = tr, n_kf
         ok = np.array([bool(o) for _, _, o in tr.trajectory])
         T = np.stack([p.cpu().numpy() for _, p, _ in tr.trajectory]).astype(np.float64)
         gt = np.array([pw.gt_x(world, int(round(ts / 0.1))) for ts, _, _ in tr.trajectory])
         err = np.abs(-T[:, 0, 3] - gt)
         max_err = float(err[ok].max()) if ok.any() else float("inf")
         seq = {"frames": n, "tracked": len(ok), "ok_share": float(ok.mean()), "keyframes": n_kf,
-               "max_t_err_m": max_err, "band_m": band, "t_err_m": err.tolist(),
+               "culled": culled, "max_t_err_m": max_err, "band_m": band, "t_err_m": err.tolist(),
                "decoder_kernel_launches": launches,
                "frame_ms_track_only_median": _median([t for t, k in frame_ms[1:] if not k]),
                "frame_ms_keyframe_median": _median([t for t, k in frame_ms[1:] if k]),
-               "frame_ms_first": frame_ms[0][0]}
+               "frame_ms_first": frame_ms[0][0],
+               "kf_point_stage_ms": [a for a, _ in kf_ms],
+               "local_ba_and_cull_ms": [b for _, b in kf_ms]}
         rep[sensor] = seq
         check(len(ok) == n and ok.mean() >= 0.9 and n_kf >= 2 and np.isfinite(T).all()
-              and max_err < band, f"{tag} {sensor} sequence: {seq}")
-        print(f"phase {tag} {sensor} sequence: {n} frames, ok {ok.mean():.3f}, {n_kf} keyframes, "
-              f"largest translation error {max_err:.4f} m (band {band} m); median ms per frame "
+              and max_err < band and (sensor != "stereo" or len(culled) >= 1),
+              f"{tag} {sensor} sequence: {seq}")
+        print(f"phase {tag} {sensor} sequence, full keyframe stage: {n} frames, ok "
+              f"{ok.mean():.3f}, {n_kf} keyframes, culled {culled}, largest translation error "
+              f"{max_err:.4f} m (band {band} m); median ms per frame "
               f"{seq['frame_ms_track_only_median']:.1f} tracking-only, "
               f"{seq['frame_ms_keyframe_median']:.1f} with a keyframe (first frame "
-              f"{seq['frame_ms_first']:.0f} ms); decoder kernels launched {launches} on {smi}",
-              flush=True)
+              f"{seq['frame_ms_first']:.0f} ms); median ms per keyframe: kf_point_stage "
+              f"{_median(seq['kf_point_stage_ms'][1:]):.1f}, local_ba_and_cull_step "
+              f"{_median(seq['local_ba_and_cull_ms'][1:]):.1f}; decoder kernels launched "
+              f"{launches} on {smi}", flush=True)
 
-    # ---- per-part times, syncs, launches, busy: on the stereo tracker,
-    # frames past the checked sequence (the state they leave is not read)
-    tr, _, _ = drive_tracking(world, texture, "stereo", 6, dev)
-    nxt = pw.gt_x(world, 6)
+    # ---- per-part times, syncs, launches, busy: the stereo tracker of 8b
+    # on the frames after its checked sequence
+    tr, n_kf = trackers["stereo"]
+    nxt = pw.gt_x(world, 24)
     img_l = pw.render_u8(world, texture, nxt)
     img_r = pw.render_u8(world, texture, nxt + world.baseline)
     il, ir = orb.to_image(img_l, dev), orb.to_image(img_r, dev)
     fl, fr = orb.extract_pair(il, ir, cfg_orb)
-    frame = tr.make_frame(img_l, img_r, timestamp=0.6)
+    frame = tr.make_frame(img_l, img_r, timestamp=2.4)
     lf, cam = tr.last_frame, tr.cfg.cam
 
     def fused():
@@ -397,43 +428,270 @@ def tracking_phase(dev, smi):
 
     def one_frame(i):
         x = pw.gt_x(world, i)
-        tr.track(pw.render_u8(world, texture, x), img_right=pw.render_u8(
-            world, texture, x + world.baseline), timestamp=i * 0.1)
+        out = tr.track(pw.render_u8(world, texture, x), img_right=pw.render_u8(
+            world, texture, x + world.baseline), timestamp=i * 0.1)[-1]
         torch.cuda.synchronize()
+        return out
 
-    one_frame(6)
+    one_frame(24)
     t0 = time.perf_counter()
-    one_frame(7)
+    one_frame(25)
     untraced = (time.perf_counter() - t0) * 1e3
+    syncs = count_syncs(lambda: one_frame(26))
+    n_kern, busy = traced(lambda: one_frame(27))
+    check(busy > 0, "the profiler saw device time in a tracking frame")
+    gn_launches, _ = traced(lambda: pose_gn.optimize_pose(cam, lf.t_cw, pts_w, obs, inv_s2,
+                                                          matched, stereo=True))
+    parts.update({"frame_ms_untraced": untraced, "host_syncs_per_frame": syncs,
+                  "kernel_launches_per_frame": n_kern, "busy_ms": busy,
+                  "idle_share": 1.0 - busy / untraced, "pose_gn_launches": gn_launches})
+    rep["per_frame"] = parts
+    print(f"phase 8 per frame (stereo, KITTI size): ORB extraction {parts['orb_extract_ms_per_image']:.2f}"
+          f" ms per image, stereo match {parts['stereo_match_ms']:.2f} ms, fused tracking stage "
+          f"{parts['fused_tracking_ms']:.2f} ms, pose GN {parts['pose_gn_ms']:.2f} ms; one frame "
+          f"{untraced:.1f} ms untraced: {n_kern} kernel launches ({gn_launches} in one pose GN "
+          f"call), {syncs} host syncs, device busy {busy:.2f} ms (idle share "
+          f"{parts['idle_share']:.3f}) on {smi}", flush=True)
+
+    # ---- 9a. the keyframe stage at KITTI size, on the stereo tracker's map
+    rep["keyframe_stage"] = keyframe_stage_phase(tr, one_frame(28)["frame"], n_kf, smi)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 8-9a took {rep['phase_s']:.0f} s", flush=True)
+    return rep
+
+
+def count_syncs(fn):
+    """Host syncs of one call of fn (`torch.cuda.set_sync_debug_mode`)."""
+    import warnings
+
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            one_frame(8)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+    return sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def traced(fn, top=None):
+    """(launches, device busy ms) of one traced call of fn; with `top`,
+    also the `top` kernels that took the most device time [(name, ms)]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        one_frame(9)
+        fn()
+        torch.cuda.synchronize()
     kern = [e for e in p.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    check(busy > 0, "the profiler saw device time in a tracking frame")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        pose_gn.optimize_pose(cam, lf.t_cw, pts_w, obs, inv_s2, matched, stereo=True)
-        torch.cuda.synchronize()
-    gn_launches = sum(1 for e in p.events() if e.device_type == DeviceType.CUDA)
-    parts.update({"frame_ms_untraced": untraced, "host_syncs_per_frame": syncs,
-                  "kernel_launches_per_frame": len(kern), "busy_ms": busy,
-                  "idle_share": 1.0 - busy / untraced, "pose_gn_launches": gn_launches})
-    rep["per_frame"] = parts
-    rep["phase_s"] = time.perf_counter() - t_phase
-    print(f"phase 8 per frame (stereo, KITTI size): ORB extraction {parts['orb_extract_ms_per_image']:.2f}"
-          f" ms per image, stereo match {parts['stereo_match_ms']:.2f} ms, fused tracking stage "
-          f"{parts['fused_tracking_ms']:.2f} ms, pose GN {parts['pose_gn_ms']:.2f} ms; one frame "
-          f"{untraced:.1f} ms untraced: {len(kern)} kernel launches ({gn_launches} in one pose GN "
-          f"call), {syncs} host syncs, device busy {busy:.2f} ms (idle share "
-          f"{parts['idle_share']:.3f}); phase 8 took "
-          f"{rep['phase_s']:.0f} s; on {smi}", flush=True)
+    if top is None:
+        return len(kern), busy
+    by_name = {}
+    for e in kern:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+    return len(kern), busy, sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+
+
+def keyframe_stage_phase(tr, frame, kid, smi):
+    """Phase 9a: one more keyframe stage on the stereo tracker's map after
+    phase 8 (frame 28, keyframe id `kid`, into the first free slot): host
+    syncs of the whole stage, launches, busy ms and idle share of each
+    half, and the BA window's size.  The per-keyframe medians come from
+    8b's run."""
+    from dsp_slam_rgbd_tpu_torch.mapping import ba
+    from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
+
+    cfg = tr.cfg
+    cam, window = cfg.cam, cfg.map.local_window
+    th_depth_m = cfg.tracking.th_depth * cam.bf / cam.fx
+    state0 = tr.state
+    slot = int(np.flatnonzero(~state0.kf_valid.cpu().numpy())[0])
+
+    def point_stage():
+        return lm.kf_point_stage(state0, cam, slot, frame, 28, th_depth_m, kid, True,
+                                 n_neighbors=10, min_obs_after=4)
+
+    st1 = point_stage()
+    counts = lm._ba_counts_device(st1, slot, window, False).cpu().numpy()
+
+    def ba_cull():
+        return lm.local_ba_and_cull_step(st1, cam, slot, window)
+
+    def whole():
+        return lm.local_ba_and_cull_step(point_stage(), cam, slot, window)
+
+    _, culled = ba_cull()
+    torch.cuda.synchronize()
+    ms_point = wall_ms(point_stage, 3)
+    ms_ba = wall_ms(ba_cull, 3)
+    # the BA+cull half's layers, each timed alone
+    buckets = lm._bucket_memo[lm._shapes(state0) + (window, False)]
+    prob, idx, _ = lm._ba_assemble_device(st1, slot, window, False, *buckets)
+    res = ba.local_ba(cam, prob)
+    layers = {"assemble_ms": wall_ms(lambda: lm._ba_assemble_device(
+                  st1, slot, window, False, *buckets), 3),
+              "local_ba_ms": wall_ms(lambda: ba.local_ba(cam, prob), 3),
+              "apply_ms": wall_ms(lambda: lm.apply_ba_result(st1, idx, res), 3),
+              "cull_ms": wall_ms(lambda: lm._cull_keyframes_device(st1, slot, 0.9, 2), 3),
+              "local_ba_launches": traced(lambda: ba.local_ba(cam, prob))[0],
+              "fuse_ms": wall_ms(lambda: lm.fuse_neighbors(st1, cam, slot), 3),
+              "fuse_busy_ms": traced(lambda: lm.fuse_neighbors(st1, cam, slot))[1]}
+    syncs = count_syncs(whole)
+    n_point, busy_point, top_point = traced(point_stage, top=4)
+    n_ba, busy_ba = traced(ba_cull)
+    rep = {"slot": slot, "ba_counts": counts.tolist(),
+           "ba_buckets": list(lm._bucket_memo[lm._shapes(state0) + (window, False)]),
+           "culled": culled, "host_syncs_per_keyframe_stage": syncs,
+           "kf_point_stage_ms": ms_point, "local_ba_and_cull_ms": ms_ba,
+           "kf_point_stage_launches": n_point, "kf_point_stage_busy_ms": busy_point,
+           "kf_point_stage_top_kernels": top_point,
+           "kf_point_stage_idle_share": 1.0 - busy_point / ms_point,
+           "local_ba_and_cull_launches": n_ba, "local_ba_and_cull_busy_ms": busy_ba,
+           "local_ba_and_cull_idle_share": 1.0 - busy_ba / ms_ba, "layers": layers,
+           "card": smi}
+    check(busy_point > 0 and busy_ba > 0, "the profiler saw device time in the keyframe stage")
+    n_kf, n_pt, n_obs, n_obj, _ = counts
+    print(f"phase 9a keyframe stage (stereo KITTI map after 8b, slot {slot}): BA window "
+          f"B={n_kf + n_obj} ({n_kf} keyframes), {n_pt} points, {n_obs} edges, buckets "
+          f"{rep['ba_buckets']}, culled {culled}; kf_point_stage {ms_point:.1f} ms "
+          f"({n_point} launches, busy {busy_point:.2f} ms, idle share "
+          f"{rep['kf_point_stage_idle_share']:.3f}), local_ba_and_cull_step {ms_ba:.1f} ms "
+          f"({n_ba} launches, busy {busy_ba:.2f} ms, idle share "
+          f"{rep['local_ba_and_cull_idle_share']:.3f}; alone: assembly "
+          f"{layers['assemble_ms']:.1f} ms, local_ba {layers['local_ba_ms']:.1f} ms in "
+          f"{layers['local_ba_launches']} launches, apply {layers['apply_ms']:.1f} ms, cull "
+          f"{layers['cull_ms']:.1f} ms; fusion alone {layers['fuse_ms']:.1f} ms, busy "
+          f"{layers['fuse_busy_ms']:.2f} ms); {syncs} host syncs per keyframe stage; point stage "
+          f"top: " + ", ".join(f"{k} {v:.2f} ms" for k, v in top_point) + f" on {smi}",
+          flush=True)
+    return rep
+
+
+def mean_reproj(ba, cam, p):
+    """Mean 2-D reprojection error (px) over a BA problem's live edges
+    (tests/test_ba_scale.py's metric)."""
+    r = ba._reproj_terms(cam, p)[0]
+    live = p.obs_mask & p.pt_valid[p.obs_pt.long()] & p.kf_valid[p.obs_kf.long()]
+    e = torch.linalg.vector_norm(r[:, :2], dim=-1)
+    return float(torch.sum(torch.where(live, e, 0.0)) / torch.sum(live))
+
+
+def recentered(fields):
+    """A BA problem ({field: numpy array}) with the world origin moved to
+    its keyframes' mean camera center: the same problem in another gauge.
+    Along the corridor the map's coordinates reach 1,000 m, where one f32
+    step is 6e-5 m; here they are window-sized."""
+    T = fields["kf_pose"].astype(np.float64)
+    centers = -np.einsum("kji,kj->ki", T[:, :3, :3], T[:, :3, 3])
+    m = centers[fields["kf_valid"]].mean(0)
+    T[:, :3, 3] += np.einsum("kij,j->ki", T[:, :3, :3], m)
+    obj = fields["obj_pose"].astype(np.float64)
+    obj[:, :3, 3] -= m
+    return dict(fields, kf_pose=T.astype(np.float32), pts=(fields["pts"] - m).astype(np.float32),
+                obj_pose=obj.astype(np.float32))
+
+
+def ba_scale_phase(dev, smi):
+    """Phases 9b and 9c: bundle adjustment on the KITTI-00-scale corridor
+    map (`tools/corridor_map.py`: 1,000 keyframes, 200,000 points, 200
+    features per keyframe) on the card, held to tests/test_ba_scale.py's
+    criteria, then the card against the CPU."""
+    from dsp_slam_rgbd_tpu_torch.mapping import ba
+    from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
+    from dsp_slam_rgbd_tpu_torch.mapping import map_state as ms
+    from dsp_slam_rgbd_tpu_torch.tools import corridor_map as cm
+    from dsp_slam_rgbd_tpu_torch.weights import (ba_problem_from_numpy, ba_problem_to_numpy,
+                                                 map_state_from_numpy)
+
+    cam = cm.CAM
+    rep = {"card": smi}
+    t0 = time.perf_counter()
+    fields, _, _ = cm.build_corridor_map()
+    state = map_state_from_numpy(fields, dev)
+    rep["build_s"] = time.perf_counter() - t0
+
+    # ---- 9b. local BA at three places along the corridor, then one global
+    # BA (matrix-free PCG) over the whole map
+    local = []
+    for center in (10, 500, 990):
+        prob, _ = lm.build_local_ba_problem(state, center, max_kfs=10)
+        B = prob.kf_pose.shape[0] + prob.obj_pose.shape[0]
+        ms_ = wall_ms(lambda: ba.local_ba(cam, prob), 2)
+        res = ba.local_ba(cam, prob)
+        launches, busy = traced(lambda: ba.local_ba(cam, prob))
+        before = mean_reproj(ba, cam, prob)
+        after = mean_reproj(ba, cam, prob._replace(kf_pose=res.kf_pose, pts=res.pts))
+        case = {"center": center, "B": B, "points": prob.pts.shape[0],
+                "edges": int(prob.obs_mask.sum()), "ms": ms_, "launches": launches,
+                "busy_ms": busy, "reproj_px_before": before, "reproj_px_after": after}
+        local.append(case)
+        check(B <= 64 and np.isfinite(after) and after < 0.7 * before, f"9b local BA {case}")
+        print(f"phase 9b local BA at keyframe {center} of the corridor (1,000 KFs, 200,000 "
+              f"points): B={B}, {case['points']} point slots, {case['edges']} edges; "
+              f"reprojection {before:.3f} -> {after:.3f} px; {ms_:.1f} ms, {launches} launches, "
+              f"busy {busy:.2f} ms on {smi}", flush=True)
+    gprob, gidx = lm.build_local_ba_problem(state, 0, 0, global_window=True)
+    B = gprob.kf_pose.shape[0] + gprob.obj_pose.shape[0]
+    n_live = int(ms._obs_ok(state).sum())
+    n_in = int(gprob.obs_mask.sum())
+    ms_ = wall_ms(lambda: ba.global_ba_pcg(cam, gprob, n_iters=6), 1)
+    res = ba.global_ba_pcg(cam, gprob, n_iters=6)
+    launches, busy, top = traced(lambda: ba.global_ba_pcg(cam, gprob, n_iters=6), top=4)
+    before = mean_reproj(ba, cam, gprob)
+    after = mean_reproj(ba, cam, gprob._replace(kf_pose=res.kf_pose, pts=res.pts))
+    state2 = lm.apply_ba_result(state, gidx, res)
+    glob = {"B": B, "edges": n_in, "live_observations": n_live, "points": gprob.pts.shape[0],
+            "ms": ms_, "launches": launches, "busy_ms": busy, "top_kernels": top,
+            "reproj_px_before": before, "reproj_px_after": after}
+    check(B >= 1000 and n_in == n_live > 150_000 and np.isfinite(after) and after < 0.5 * before
+          and bool(torch.isfinite(state2.kf_pose).all()), f"9b global BA {glob}")
+    rep.update(local_ba=local, global_ba_pcg=glob)
+    print(f"phase 9b global BA (PCG, 6 LM iterations of 48 CG steps): B={B}, {n_in} edges "
+          f"(every live observation), {glob['points']} point slots; reprojection {before:.3f} -> "
+          f"{after:.3f} px; {ms_:.1f} ms, {launches} launches, busy {busy:.2f} ms; top: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in top) + f" on {smi}", flush=True)
+
+    # ---- 9c. the card against the CPU: one LM step of each local problem,
+    # and the dense-vs-PCG agreement on the 24-KF corridor
+    cpu = torch.device("cpu")
+    steps = []
+    for center in (10, 500, 990):
+        prob, _ = lm.build_local_ba_problem(state, center, max_kfs=10)
+        case = {"center": center}
+        for gauge, fields in (("map", ba_problem_to_numpy(prob)),
+                              ("local", recentered(ba_problem_to_numpy(prob)))):
+            card, _ = ba._assemble_and_solve(cam, ba_problem_from_numpy(fields, dev), 1e-3)
+            host, _ = ba._assemble_and_solve(cam, ba_problem_from_numpy(fields, cpu), 1e-3)
+            for k in ("kf_pose", "pts"):
+                case[f"{gauge}_{k}"] = float((getattr(card, k).cpu() - getattr(host, k)).abs().max())
+        steps.append(case)
+        check(max(case["local_kf_pose"], case["local_pts"]) <= 1e-4,
+              f"9c one LM step, card vs CPU at {center}: {case}")
+    fields, _, centers = cm.build_corridor_map(n_kf=24, n_pts=2000, feat_per_kf=120, noise=0.2,
+                                               max_kf=32, max_pts=4096)
+    small, poses = {}, {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        prob, idx = lm.build_local_ba_problem(map_state_from_numpy(fields, d), 0, 0,
+                                              global_window=True)
+        res_d = ba.global_ba(cam, prob, n_iters=10)
+        res_p = ba.global_ba_pcg(cam, prob, n_iters=10, cg_iters=64, damping=1e-3)
+        kf = idx.kf_idx.cpu().numpy()
+        ok = kf >= 0
+        poses[where] = [r.kf_pose.cpu().numpy()[ok] for r in (res_d, res_p)]
+        for name, pose in zip(("dense", "pcg"), poses[where]):
+            e = float(np.linalg.norm(-pose[:, :3, 3] - centers[kf[ok]], axis=-1).max())
+            small[f"{where}_{name}_max_err_m"] = e
+            check(e < 0.03, f"9c 24-KF corridor {where} {name}: {e}")
+        small[f"{where}_dense_vs_pcg"] = float(np.abs(poses[where][0] - poses[where][1]).max())
+        check(small[f"{where}_dense_vs_pcg"] < 5e-3, f"9c dense vs PCG on the {where}: {small}")
+    small["card_vs_cpu_dense"] = float(np.abs(poses["card"][0] - poses["cpu"][0]).max())
+    small["card_vs_cpu_pcg"] = float(np.abs(poses["card"][1] - poses["cpu"][1]).max())
+    check(max(small["card_vs_cpu_dense"], small["card_vs_cpu_pcg"]) < 5e-3,
+          f"9c 24-KF corridor card vs CPU: {small}")
+    rep.update(step_card_vs_cpu=steps, corridor24=small)
+    print(f"phase 9c card vs CPU: one LM step (largest differences in the map's coordinates "
+          f"and recentered) {steps}; 24-KF corridor {small} on {smi}", flush=True)
     return rep
 
 
@@ -717,8 +975,12 @@ def main(argv=None):
           + ", ".join(f"{t['l2_bytes'] / 1e9:.3f} GB = {t['l2_tb_per_s']:.2f} TB/s, "
                       f"{t['us_per_stage']:.3f} us per stage at {t['rows']} rows"
                       for t in (t_jac, t_jac_sdf)), flush=True)
-    # ---- 8. per-frame tracking at KITTI size
+    # ---- 8 / 9a. per-frame tracking and the keyframe stage at KITTI size
     report["tracking"] = tracking_phase(dev, smi)
+    # ---- 9b / 9c. bundle adjustment at KITTI-00 scale, and card vs CPU
+    t0 = time.perf_counter()
+    report["ba_scale"] = ba_scale_phase(dev, smi)
+    print(f"phase 9b-9c took {time.perf_counter() - t0:.0f} s", flush=True)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "rows", "dtype")

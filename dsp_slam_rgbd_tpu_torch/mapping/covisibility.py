@@ -35,8 +35,12 @@ def covisibility_rows(state: ms.MapState, kfs: torch.Tensor) -> torch.Tensor:
 
 
 def covisibility_row(state: ms.MapState, kf) -> torch.Tensor:
-    """(K,) int32 co-observation counts of `kf` vs every KF (self zeroed)."""
-    kfs = torch.as_tensor(kf, device=state.kf_valid.device).reshape(1)
+    """(K,) int32 co-observation counts of `kf` (a slot number or a
+    one-element tensor) vs every KF (self zeroed)."""
+    if isinstance(kf, torch.Tensor):
+        kfs = kf.reshape(1)
+    else:  # filled on the device: a host scalar uploaded to the card blocks
+        kfs = torch.full((1,), kf, dtype=torch.long, device=state.kf_valid.device)
     return covisibility_rows(state, kfs)[0]
 
 
@@ -60,10 +64,11 @@ def local_window(state: ms.MapState, center_kf: int, max_kfs: int,
     """
     w_center = covisibility_row(state, center_kf)
     in_window = (w_center >= min_weight) & state.kf_valid
-    in_window[center_kf] = True
+    # (fill_: a scalar assigned into a card tensor is copied from the host)
+    in_window[center_kf].fill_(True)
     # cap to the top max_kfs by weight (equal weights in index order)
     score = torch.where(in_window, w_center + 1, -1)
-    score[center_kf] = torch.iinfo(torch.int32).max
+    score[center_kf].fill_(torch.iinfo(torch.int32).max)
     order = torch.argsort(-score.long(), stable=True)
     in_window = in_window & ms.mark(in_window.shape[0], order[:max_kfs])
 

@@ -11,6 +11,10 @@ field by field, into the port's tensors and back, so both trackers start
 from the same state.  Descriptor words are uint32 there and int32 here:
 they cross as a bit view (`.view(np.int32)`), never a value cast, so the
 round trip is exact, bit 31 included.
+
+`ba_problem_from_numpy`/`ba_problem_to_numpy` and `ba_result_to_numpy` do
+the same for bundle-adjustment problems and results, so one problem can
+be solved by both packages, or on the card and on the CPU.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 
 from dsp_slam_rgbd_tpu_torch import device as device_mod
 from dsp_slam_rgbd_tpu_torch.frontend.orb import Features
+from dsp_slam_rgbd_tpu_torch.mapping.ba import BAProblem, BAResult
 from dsp_slam_rgbd_tpu_torch.mapping.map_state import MapState
 from dsp_slam_rgbd_tpu_torch.models.deepsdf import DecoderSpec, DeepSDFDecoder
 from dsp_slam_rgbd_tpu_torch.tracking.tracker import Frame
@@ -83,3 +88,17 @@ def frame_to_numpy(frame: Frame) -> dict:
             **{n: _to_numpy(n, getattr(frame, n))
                for n in ("ur", "depth", "t_cw", "pt_idx")},
             "timestamp": frame.timestamp}
+
+
+def ba_problem_from_numpy(fields, device="cuda") -> BAProblem:
+    """{field: numpy array} of a JAX `BAProblem` -> the port's on `device`."""
+    dev = device_mod.resolve(device)
+    return BAProblem(*[_to_tensor(fields[n], dev) for n in BAProblem._fields])
+
+
+def ba_problem_to_numpy(prob: BAProblem) -> dict:
+    return {n: _to_numpy(n, getattr(prob, n)) for n in BAProblem._fields}
+
+
+def ba_result_to_numpy(res: BAResult) -> dict:
+    return {n: _to_numpy(n, getattr(res, n)) for n in BAResult._fields}

@@ -14,7 +14,10 @@ and the local-map stage after it 1e-3, the same matches).  The 10-frame
 stereo and RGB-D sequences run through both packages with the same
 keyframe bootstrap (tests/tracking_driver.py): each ≥ 80% of frames OK and
 largest error < 0.08 m (the bands of tests/test_rgbd_e2e.py), the two
-trajectories within 1e-2 m frame by frame.
+trajectories within 1e-2 m frame by frame; the same sequences again with
+the full keyframe stage (point stage, local BA, keyframe culling): the
+same bands, keyframe count and culled slots.  The recent-keyframe lists
+go by slot order in both packages after culling.
 """
 import copy
 import dataclasses
@@ -28,6 +31,7 @@ import torch
 
 import tracking_driver as td
 from dsp_slam_rgbd_tpu import config as jconfig
+from dsp_slam_rgbd_tpu.frontend.orb import Features as JFeatures
 from dsp_slam_rgbd_tpu.mapping import covisibility as jcov
 from dsp_slam_rgbd_tpu.mapping import local_mapping as jlm
 from dsp_slam_rgbd_tpu.mapping import map_state as jms
@@ -86,20 +90,30 @@ def _np_frame(frame) -> dict:
             "timestamp": frame.timestamp}
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _both_runs(stage):
     """Both packages' trackers over the 10-frame stereo and RGB-D
-    sequences, with the same keyframe bootstrap."""
+    sequences, with the same keyframe stage."""
     tex = pw.make_texture(WORLD)
     out = {}
     for sensor in ("stereo", "rgbd"):
         seq = td.frames(WORLD, tex, sensor, 10)
         jc = make_cfg(sensor)
         out[sensor] = {
-            "jax": td.drive(jms, jlm, jtr, jc, seq, code_len=4),
-            "torch": td.drive(tms, tlm, ttr, port_config(jc), seq, code_len=4, device="cpu"),
+            "jax": td.drive(jms, jlm, jtr, jc, seq, code_len=4, stage=stage),
+            "torch": td.drive(tms, tlm, ttr, port_config(jc), seq, code_len=4, stage=stage,
+                              device="cpu"),
             "seq": seq}
     return out
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return _both_runs("bootstrap")
+
+
+@pytest.fixture(scope="module")
+def full_runs():
+    return _both_runs("full")
 
 
 # ---------------------------------------------------------------- geometry
@@ -480,12 +494,10 @@ def test_window_falls_back_to_recent_without_matches():
 
 
 # ------------------------------------------------------------------- slice
-@pytest.mark.parametrize("sensor", ["stereo", "rgbd"])
-def test_sequence_tracks_like_jax(runs, sensor):
-    r = runs[sensor]
+def _tracks_like_jax(r):
     errs = {}
     for pkg in ("jax", "torch"):
-        tr, n_kf = r[pkg]
+        tr, n_kf, _ = r[pkg]
         ok, err, T = td.trajectory_errors(WORLD, tr.trajectory)
         assert len(ok) == 10 and ok.mean() >= 0.8, pkg
         assert err[ok].max() < 0.08, pkg
@@ -493,6 +505,65 @@ def test_sequence_tracks_like_jax(runs, sensor):
         errs[pkg] = T
     assert np.abs(errs["torch"][:, :3, 3] - errs["jax"][:, :3, 3]).max() < 1e-2
     assert r["jax"][1] == r["torch"][1]   # the same keyframe count
+
+
+@pytest.mark.parametrize("sensor", ["stereo", "rgbd"])
+def test_sequence_tracks_like_jax(runs, sensor):
+    _tracks_like_jax(runs[sensor])
+
+
+@pytest.mark.parametrize("sensor", ["stereo", "rgbd"])
+def test_full_keyframe_stage_tracks_like_jax(full_runs, sensor):
+    """The same sequences with the whole keyframe stage (point stage, local
+    BA, keyframe culling): the bands of the bootstrap sequences, the same
+    keyframe count and culled slots, trajectories within 1e-2 m."""
+    r = full_runs[sensor]
+    _tracks_like_jax(r)
+    assert r["jax"][2] == r["torch"][2]   # the same culled slots, in order
+
+
+def test_recent_keyframe_lists_keep_slot_order():
+    """After culling, new keyframes take the freed low slots, and both
+    packages' `_recent_window`/`_recent_kfs` still go by slot order (kept
+    for parity; ROADMAP §3), so the five "recent" KFs are not the five
+    newest by frame id."""
+    K, F, P = 8, 32, 64
+    kf_feat_pt = np.full((K, F), -1, np.int32)
+    for k in range(6):
+        kf_feat_pt[k, :30] = np.arange(30)
+    js = jms.empty(max_kf=K, max_feat=F, max_pts=P, max_obj=2)._replace(
+        kf_valid=jnp.asarray([True] * 6 + [False] * 2),
+        kf_frame_id=jnp.asarray(list(range(6)) + [-1, -1], jnp.int32),
+        kf_feat_valid=jnp.ones((K, F), bool),
+        kf_feat_pt=jnp.asarray(kf_feat_pt),
+        pt_valid=jnp.asarray([True] * 30 + [False] * 34))
+    ts = map_state_from_numpy(_np_state(js), "cpu")
+    js, culled_j = jlm.cull_keyframes(js, 5, max_cull=2)
+    ts, culled_t = tlm.cull_keyframes(ts, 5, max_cull=2)
+    assert culled_j == culled_t == [0, 1]
+    kf_valid = np.asarray(js.kf_valid).copy()
+    jframe = jtr.Frame(JFeatures(
+        xy=jnp.zeros((F, 2)), level=jnp.zeros(F, jnp.int32), angle=jnp.zeros(F),
+        score=jnp.zeros(F), desc=jnp.zeros((F, 8), jnp.uint32), valid=jnp.zeros(F, bool)),
+        ur=jnp.full(F, -1.0), depth=jnp.full(F, -1.0), t_cw=jnp.eye(4),
+        pt_idx=jnp.full(F, -1, jnp.int32), timestamp=0.0)
+    tframe = frame_from_numpy(_np_frame(jframe), "cpu")
+    for fid in (6, 7):                      # two new keyframes, first-free slots
+        slot = int(jms.alloc_slots(kf_valid, 1)[0])
+        kf_valid[slot] = True
+        js = jlm.insert_keyframe(js, jframe, slot, fid)
+        ts = tlm.insert_keyframe(ts, tframe, slot, fid)
+    cfg_j = jconfig.SystemConfig(map=jconfig.MapConfig(max_kf=K, max_feat=F, max_pts=P,
+                                                       max_obj=2, local_window=4))
+    trj = jtr.Tracker(cfg_j, js)
+    trt = ttr.Tracker(port_config(cfg_j), ts, device="cpu")
+    np.testing.assert_array_equal(trt._recent_window(), np.asarray(trj._recent_window()))
+    assert trt._recent_kfs(5) == list(trj._recent_kfs(5)) == [5, 4, 3, 2, 1]
+    fids = ts.kf_frame_id.numpy()
+    newest = np.argsort(-np.where(ts.kf_valid.numpy(), fids, -1), kind="stable")[:5]
+    assert set(newest.tolist()) == {1, 0, 5, 4, 3}
+    assert set(trt._recent_kfs(5)) != set(newest.tolist())
+    assert set(trt._recent_window().tolist()) == {2, 3, 4, 5}
 
 
 def test_config_from_reference_yaml_matches_jax():

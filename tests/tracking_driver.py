@@ -1,15 +1,21 @@
-"""The keyframe-bootstrap driver that holds the port's tracker to the JAX
-package's on the tilted-plane world (imported by tests/test_torch_tracking.py).
+"""The keyframe driver that holds the port's tracker to the JAX package's on
+the tilted-plane world (imported by tests/test_torch_tracking.py).
 
 Either package's `Tracker` runs a sequence; whenever it returns `new_kf`,
-the driver inserts the keyframe with the stereo subset of the JAX
-package's keyframe point stage (`local_mapping.kf_point_stage`):
-`insert_keyframe`, `spawn_depth_points`, `update_point_geometry`.
+the driver inserts the keyframe with one of two stages:
+  * "bootstrap": the stereo subset of the keyframe point stage
+    (`insert_keyframe`, `spawn_depth_points`, `update_point_geometry`);
+  * "full": what the JAX package's keyframe stage runs for a keyframe
+    without detections and without loop closing
+    (`system/mapping_stage.py:190-242`): `kf_point_stage` (insert, spawn,
+    triangulation, fusion, point culling, geometry), then
+    `local_ba_and_cull_step` over the local window, and the culled slots
+    leave the host's keyframe mask.
 
 Run as a script, it drives the JAX package on the CPU at the KITTI-size
 world that `chip_smoke.py` phase 8 drives the port at (24 stereo frames,
-12 RGB-D frames) and prints each sequence's largest translation error, the
-number phase 8's band comes from:
+12 RGB-D frames), with both stages, and prints each sequence's largest
+translation error, the number phase 8's bands come from:
 
     JAX_PLATFORMS=cpu python tests/tracking_driver.py
 """
@@ -36,10 +42,11 @@ def frames(world, texture, sensor, n, u8=False):
     return out
 
 
-def drive(ms, lm, tracker_mod, cfg, seq, code_len, **device):
-    """Track `seq` with keyframe bootstrap -> (tracker, keyframe count).
-    `ms`, `lm`, `tracker_mod`: either package's map_state, local_mapping
-    and tracker modules; `device` goes to the port's entry points."""
+def drive(ms, lm, tracker_mod, cfg, seq, code_len, stage="bootstrap", **device):
+    """Track `seq`, inserting keyframes with `stage` ("bootstrap" or
+    "full") -> (tracker, keyframe count, culled slots in order).  `ms`,
+    `lm`, `tracker_mod`: either package's map_state, local_mapping and
+    tracker modules; `device` goes to the port's entry points."""
     m = cfg.map
     state = ms.empty(max_kf=m.max_kf, max_feat=m.max_feat, max_pts=m.max_pts,
                      max_obj=m.max_obj, code_len=code_len, max_oobs=m.max_oobs,
@@ -47,7 +54,9 @@ def drive(ms, lm, tracker_mod, cfg, seq, code_len, **device):
     tr = tracker_mod.Tracker(cfg, state, **device)
     kf_valid = np.zeros(m.max_kf, bool)
     n_kf = 0
+    culled = []
     th_depth_m = cfg.tracking.th_depth * cfg.cam.bf / cfg.cam.fx
+    stereo = cfg.sensor in ("stereo", "rgbd")
     for i, (left, right, depth) in enumerate(seq):
         out = tr.track(left, img_right=right, depth_map=depth, timestamp=i * 0.1)[-1]
         if not out["new_kf"]:
@@ -56,15 +65,25 @@ def drive(ms, lm, tracker_mod, cfg, seq, code_len, **device):
         if slot < 0:
             continue
         kf_valid[slot] = True
-        st = lm.insert_keyframe(tr.state, out["frame"], slot, out["fid"])
-        st = lm.spawn_depth_points(st, cfg.cam, slot, out["frame"], th_depth_m,
-                                   first_id=n_kf)
-        tr.state = lm.update_point_geometry(st)
+        if stage == "full":
+            st = lm.kf_point_stage(tr.state, cfg.cam, slot, out["frame"], out["fid"],
+                                   th_depth_m, n_kf, stereo,
+                                   n_neighbors=10 if stereo else 20,
+                                   min_obs_after=4 if stereo else 3)
+            st, gone = lm.local_ba_and_cull_step(st, cfg.cam, slot, m.local_window)
+            kf_valid[gone] = False
+            culled += gone
+        else:
+            st = lm.insert_keyframe(tr.state, out["frame"], slot, out["fid"])
+            st = lm.spawn_depth_points(st, cfg.cam, slot, out["frame"], th_depth_m,
+                                       first_id=n_kf)
+            st = lm.update_point_geometry(st)
+        tr.state = st
         n_kf += 1
         tr.last_kf_frame_id = out["fid"]
         if tr.ref_kf < 0:
             tr.ref_kf = slot
-    return tr, n_kf
+    return tr, n_kf, culled
 
 
 def trajectory_errors(world, trajectory):
@@ -97,16 +116,19 @@ def main():
 
     world = pw.KITTI
     texture = pw.make_texture(world)
-    for sensor, n in (("stereo", 24), ("rgbd", 12)):
-        cfg = kitti_configs(config, orb, camera, sensor)
-        t0 = time.perf_counter()
-        tr, n_kf = drive(map_state, local_mapping, tracker, cfg,
-                         frames(world, texture, sensor, n, u8=True), code_len=64)
-        ok, err, _ = trajectory_errors(world, tr.trajectory)
-        print(f"JAX package on the CPU, KITTI-size {sensor}, {n} frames: ok {ok.mean():.3f}, "
-              f"keyframes {n_kf}, largest translation error {err[ok].max():.6f} m "
-              f"({time.perf_counter() - t0:.0f} s); per frame "
-              f"{' '.join(f'{e:.3f}' for e in err)}", flush=True)
+    for stage in ("bootstrap", "full"):
+        for sensor, n in (("stereo", 24), ("rgbd", 12)):
+            cfg = kitti_configs(config, orb, camera, sensor)
+            t0 = time.perf_counter()
+            tr, n_kf, culled = drive(map_state, local_mapping, tracker, cfg,
+                                     frames(world, texture, sensor, n, u8=True), code_len=64,
+                                     stage=stage)
+            ok, err, _ = trajectory_errors(world, tr.trajectory)
+            print(f"JAX package on the CPU, KITTI-size {sensor}, {n} frames, {stage} "
+                  f"keyframe stage: ok {ok.mean():.3f}, keyframes {n_kf}, culled {culled}, "
+                  f"largest translation error {err[ok].max():.6f} m "
+                  f"({time.perf_counter() - t0:.0f} s); per frame "
+                  f"{' '.join(f'{e:.3f}' for e in err)}", flush=True)
 
 
 if __name__ == "__main__":
