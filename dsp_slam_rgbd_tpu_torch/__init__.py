@@ -6,11 +6,16 @@ is easy to find; the decoder's two fused TPU kernels are hand-written CUDA
 for sm_90a under `csrc/`, built at first use (`ops/cuda/build.py`).
 
 Layout (ported so far):
-  ops/       Lie groups, robust norms; ops/cuda: the fused decoder kernels
+  ops/       Lie groups, robust norms, camera; ops/cuda: the fused decoder kernels
   models/    DeepSDF decoder (nn.Module) + mesh extraction
   recon/     object shape+pose Gauss-Newton optimizer (the FLOPs core)
-  system/    detection containers and label files
-  tools/     single-frame reconstruction CLI
+  frontend/  ORB extraction, matching, stereo
+  solvers/   pose GN, PnP, triangulation
+  mapping/   map state, covisibility, keyframe point stage, BA, map objects
+  tracking/  the synchronous tracker
+  system/    detections, label files, the object stage, the mono object
+             pipeline and the keyframe MappingStage (no loop closing yet)
+  tools/     single-frame reconstruction CLI and the synthetic worlds
   entry.py   the flagship reconstruction step with example inputs
 
 Entry points take a `device` and default to "cuda"; without a card they

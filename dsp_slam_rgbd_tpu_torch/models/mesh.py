@@ -44,12 +44,16 @@ def create_voxel_grid(vol_dim: int = 64, extent: float = 1.0,
 
 def sdf_bbox(decoder, code: torch.Tensor, vol_dim: int = 24, extent: float = 1.1):
     """Bbox of the decoded shape's interior (sdf < 0) from a coarse grid
-    decode: (bbox_min (3,), bbox_max (3,)) in normalized object
-    coordinates, ±1 when nothing is inside."""
+    decode: (bbox_min, bbox_max) in normalized object coordinates, ±1
+    when nothing is inside.  code (L,) gives (3,) boxes; codes (U, L) give
+    (U, 3) boxes from ONE decoder query over U×vol_dim³ rows (the JAX
+    package vmaps the one-code form)."""
     grid = create_voxel_grid(vol_dim, extent, device=code.device)
+    if code.dim() == 2:
+        grid = grid.expand(code.shape[0], -1, -1)
     inside = decoder.query(code, grid) < 0.0
-    bb_min = torch.amin(torch.where(inside[:, None], grid, torch.inf), dim=0)
-    bb_max = torch.amax(torch.where(inside[:, None], grid, -torch.inf), dim=0)
+    bb_min = torch.amin(torch.where(inside[..., None], grid, torch.inf), dim=-2)
+    bb_max = torch.amax(torch.where(inside[..., None], grid, -torch.inf), dim=-2)
     ok = torch.isfinite(bb_min) & torch.isfinite(bb_max)
     return torch.where(ok, bb_min, -1.0), torch.where(ok, bb_max, 1.0)
 

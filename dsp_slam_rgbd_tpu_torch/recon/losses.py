@@ -213,8 +213,9 @@ def compute_rotation_loss_sim3(t_obj_cam):
     t_cam_obj = lie.inv_sim3(t_obj_cam)
     sR = t_cam_obj[..., :3, :3]
     r_co = sR / lie.cbrt(torch.linalg.det(sR))[..., None, None]
-    ey = torch.tensor([0.0, 1.0, 0.0], device=sR.device)
-    ng = torch.tensor([0.0, -1.0, 0.0], device=sR.device)
+    # built on the device: a constant copied from the host blocks the host
+    ey = torch.eye(3, device=sR.device)[1]
+    ng = -ey
     ry = r_co @ ey
     res = 1.0 - ry @ ng
     r_oc_ng = ng @ r_co                                  # r_coᵀ n_g

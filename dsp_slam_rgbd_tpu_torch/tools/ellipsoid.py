@@ -52,6 +52,26 @@ def make_problem(seed: int, n_pts: int = 128, n_rays: int = 128) -> dict:
     T_co_gt[:3, :3] = s_gt * R
     T_co_gt[:3, 3] = t_gt
 
+    obs = observe(rng, axes, T_co_gt, n_pts, n_rays)
+    return dict(T_co_gt=T_co_gt.astype(np.float32), t_gt=t_gt.astype(np.float32), s_gt=s_gt,
+                R=R.astype(np.float32), code_gt=code_gt, **obs)
+
+
+def observe(rng, axes: np.ndarray, T_co_gt: np.ndarray, n_pts: int, n_rays: int,
+            sigma=(0.15, 0.03), at_object: bool = False) -> dict:
+    """One observation of the ellipsoid of semi-axes `axes` at the true
+    Sim(3) pose T_co_gt (camera at the origin): surface points, rays (3/4
+    foreground, with their first-hit depths along the ray, then background
+    rays past the silhouette) and a perturbed initial pose `T_init`, drawn
+    from `rng` in that order.  The perturbation is a Sim(3) tangent of
+    translation and rotation noise `sigma` (σ per axis) and log-scale
+    +0.05, applied in the camera frame, or with `at_object` about the
+    object's center (the rotation and scale then move the object's center
+    by nothing).  Arrays are float32 numpy."""
+    s_gt = np.cbrt(np.linalg.det(T_co_gt[:3, :3]))
+    R = T_co_gt[:3, :3] / s_gt
+    t_gt = T_co_gt[:3, 3]
+
     def on_surface(n, inflate=1.0):
         d = rng.standard_normal((n, 3))
         d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -69,13 +89,19 @@ def make_problem(seed: int, n_pts: int = 128, n_rays: int = 128) -> dict:
     p3 = on_surface(n_rays - n_fg, inflate=1.35)
     rays_bg = p3 / np.linalg.norm(p3, axis=1, keepdims=True)
 
-    dx = np.concatenate([rng.standard_normal(3) * 0.15, rng.standard_normal(3) * 0.03,
+    dx = np.concatenate([rng.standard_normal(3) * sigma[0], rng.standard_normal(3) * sigma[1],
                          [0.05]])
+    if at_object:
+        E = _exp_sim3(np.concatenate([np.zeros(3), dx[3:]]))
+        T_init = T_co_gt.copy()
+        T_init[:3, :3] = E[:3, :3] @ T_co_gt[:3, :3]
+        T_init[:3, 3] += dx[:3]
+    else:
+        T_init = _exp_sim3(dx) @ T_co_gt
     f32 = np.float32
     return dict(
-        T_init=(_exp_sim3(dx) @ T_co_gt).astype(f32), T_co_gt=T_co_gt.astype(f32),
-        t_gt=t_gt.astype(f32), s_gt=s_gt, R=R.astype(f32), code_gt=code_gt,
-        pts=pts.astype(f32), rays=np.concatenate([rays_fg, rays_bg]).astype(f32),
+        T_init=T_init.astype(f32), pts=pts.astype(f32),
+        rays=np.concatenate([rays_fg, rays_bg]).astype(f32),
         depth=np.concatenate([depth_fg, np.zeros(n_rays - n_fg)]).astype(f32),
         fg_mask=np.arange(n_rays) < n_fg)
 

@@ -10,12 +10,22 @@ the driver inserts the keyframe with one of two stages:
     (`system/mapping_stage.py:190-242`): `kf_point_stage` (insert, spawn,
     triangulation, fusion, point culling, geometry), then
     `local_ba_and_cull_step` over the local window, and the culled slots
-    leave the host's keyframe mask.
+    leave the host's keyframe mask;
+  * "objects": the package's `MappingStage(..., vocab=None).process`
+    (`system/mapping_stage.py`), the full keyframe stage with detections:
+    `objects` carries the stage's constructor and the detections of
+    `dsp_slam_rgbd_tpu_torch/tools/object_world.py` (see
+    `object_inputs`).
 
 Run as a script, it drives the JAX package on the CPU at the KITTI-size
 world that `chip_smoke.py` phase 8 drives the port at (24 stereo frames,
 12 RGB-D frames), with both stages, and prints each sequence's largest
-translation error, the number phase 8's bands come from:
+translation error, the number phase 8's bands come from; then the stereo
+sequence again with the "objects" stage at phase 10's size (8 objects of
+`object_world.kitti_objects`, 256 points and 512 rays a detection, the
+fixture decoder, `ReconConfig()`), and prints the largest camera error,
+each object's center error and the dynamic flags, the numbers phase 10's
+bands come from:
 
     JAX_PLATFORMS=cpu python tests/tracking_driver.py
 """
@@ -27,7 +37,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
+from dsp_slam_rgbd_tpu_torch.tools import object_world as ow  # noqa: E402
 from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw  # noqa: E402
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                       "ellipsoid_decoder_64.npz")
 
 
 def frames(world, texture, sensor, n, u8=False):
@@ -42,11 +56,29 @@ def frames(world, texture, sensor, n, u8=False):
     return out
 
 
-def drive(ms, lm, tracker_mod, cfg, seq, code_len, stage="bootstrap", **device):
-    """Track `seq`, inserting keyframes with `stage` ("bootstrap" or
-    "full") -> (tracker, keyframe count, culled slots in order).  `ms`,
-    `lm`, `tracker_mod`: either package's map_state, local_mapping and
-    tracker modules; `device` goes to the port's entry points."""
+def object_inputs(stage_mod, det_mod, world, truths, n_pts, n_rays, seed=0,
+                  on_keyframe=None, **stage_kwargs):
+    """The "objects" stage's inputs for `drive`: `stage_mod` and `det_mod`
+    are either package's mapping_stage and detections modules,
+    `stage_kwargs` its decoder (`decoder_params`/`decoder_spec` for the
+    JAX package, `decoder` for the port).  Frame i's detections are
+    `object_world.frame_detections` (the same numpy for both packages).
+    on_keyframe(i, job, pre_state, result, truth indices) is called after
+    each `process`."""
+    def make_detections(i):
+        return ow.frame_detections(det_mod, world, truths, i, n_pts, n_rays, seed)
+
+    return {"stage": lambda cfg, state, kv: stage_mod.MappingStage(cfg, state, kv, **stage_kwargs),
+            "job": stage_mod.KFJob, "detections": make_detections, "on_keyframe": on_keyframe}
+
+
+def drive(ms, lm, tracker_mod, cfg, seq, code_len, stage="bootstrap", objects=None,
+          **device):
+    """Track `seq`, inserting keyframes with `stage` ("bootstrap", "full"
+    or "objects", the last with `objects` from `object_inputs`) ->
+    (tracker, keyframe count, culled slots in order).  `ms`, `lm`,
+    `tracker_mod`: either package's map_state, local_mapping and tracker
+    modules; `device` goes to the port's entry points."""
     m = cfg.map
     state = ms.empty(max_kf=m.max_kf, max_feat=m.max_feat, max_pts=m.max_pts,
                      max_obj=m.max_obj, code_len=code_len, max_oobs=m.max_oobs,
@@ -57,6 +89,7 @@ def drive(ms, lm, tracker_mod, cfg, seq, code_len, stage="bootstrap", **device):
     culled = []
     th_depth_m = cfg.tracking.th_depth * cfg.cam.bf / cfg.cam.fx
     stereo = cfg.sensor in ("stereo", "rgbd")
+    mapping = objects["stage"](cfg, tr.state, kf_valid) if stage == "objects" else None
     for i, (left, right, depth) in enumerate(seq):
         out = tr.track(left, img_right=right, depth_map=depth, timestamp=i * 0.1)[-1]
         if not out["new_kf"]:
@@ -65,7 +98,17 @@ def drive(ms, lm, tracker_mod, cfg, seq, code_len, stage="bootstrap", **device):
         if slot < 0:
             continue
         kf_valid[slot] = True
-        if stage == "full":
+        if stage == "objects":
+            dets, truth_idx = objects["detections"](i)
+            job = objects["job"](frame=out["frame"], detections=dets, kf_slot=slot, kid=n_kf,
+                                 frame_id=out["fid"], timestamp=out["timestamp"])
+            mapping.state = pre = tr.state
+            res = mapping.process(job)
+            if objects["on_keyframe"] is not None:
+                objects["on_keyframe"](i, job, pre, res, truth_idx)
+            culled += [c for c, _, _ in res.culled]   # `process` cleared them in kf_valid
+            st = res.state
+        elif stage == "full":
             st = lm.kf_point_stage(tr.state, cfg.cam, slot, out["frame"], out["fid"],
                                    th_depth_m, n_kf, stereo,
                                    n_neighbors=10 if stereo else 20,
@@ -107,6 +150,30 @@ def kitti_configs(pkg_config, pkg_orb, pkg_camera, sensor):
                                  max_oobs=256, local_window=8))
 
 
+def objects_run(world=pw.KITTI, n=24, seed=0):
+    """The JAX package's stereo run with the "objects" stage at phase 10's
+    size on the CPU -> (tracker, keyframe count, culled, ObjectLog)."""
+    from dsp_slam_rgbd_tpu import config
+    from dsp_slam_rgbd_tpu.frontend import orb
+    from dsp_slam_rgbd_tpu.mapping import local_mapping, map_state
+    from dsp_slam_rgbd_tpu.models import deepsdf
+    from dsp_slam_rgbd_tpu.ops import camera
+    from dsp_slam_rgbd_tpu.system import detections, mapping_stage
+    from dsp_slam_rgbd_tpu.tracking import tracker
+
+    truths = ow.kitti_objects(seed)
+    log = ow.ObjectLog(truths)
+    params, spec = deepsdf.load_npz(FIXTURE)
+    objects = object_inputs(mapping_stage, detections, world, truths, 256, 512, seed,
+                            on_keyframe=lambda i, job, pre, res, idx: log(i, res.state),
+                            decoder_params=params, decoder_spec=spec)
+    cfg = kitti_configs(config, orb, camera, "stereo")
+    tr, n_kf, culled = drive(map_state, local_mapping, tracker, cfg,
+                             frames(world, pw.make_texture(world), "stereo", n, u8=True),
+                             code_len=64, stage="objects", objects=objects)
+    return tr, n_kf, culled, log
+
+
 def main():
     from dsp_slam_rgbd_tpu import config
     from dsp_slam_rgbd_tpu.frontend import orb
@@ -129,6 +196,18 @@ def main():
                   f"largest translation error {err[ok].max():.6f} m "
                   f"({time.perf_counter() - t0:.0f} s); per frame "
                   f"{' '.join(f'{e:.3f}' for e in err)}", flush=True)
+    t0 = time.perf_counter()
+    tr, n_kf, culled, log = objects_run(world)
+    ok, err, _ = trajectory_errors(world, tr.trajectory)
+    summ = log.summary()
+    print(f"JAX package on the CPU, KITTI-size stereo, 24 frames, objects keyframe stage "
+          f"(8 objects, 256 points, 512 rays, ReconConfig()): ok {ok.mean():.3f}, keyframes "
+          f"{n_kf}, culled {culled}, largest translation error {err[ok].max():.6f} m; objects "
+          f"valid {summ['valid']}, identities kept {summ['identities_kept']}; per slot "
+          + ", ".join(f"{d['slot']}->truth {d['truth']} err {d['center_err_m']:.4f} m "
+                      f"dynamic {d['dynamic']} (truth {d['truth_dynamic']})"
+                      for d in summ["slots"])
+          + f" ({time.perf_counter() - t0:.0f} s)", flush=True)
 
 
 if __name__ == "__main__":
