@@ -19,15 +19,20 @@ every measured number also goes to that JSON file.
 
 Phase 2 also counts the tensor-core (HGMMA) instructions in the SASS of
 both bf16 kernels (value and Jacobian) and fails if there are none or if
-either spills to local memory; phase 3 also holds each of them to its
-plain version at ragged row counts up to past the main path's sizes, for
+either spills to local memory, and prints the f32 kernels' figures
+(`mlp_sdf_f32_config`: shared memory, registers, local bytes, ring slots,
+resident clusters, for each tiling: rows of a tile and CTAs of a cluster)
+and fails if any spills; phase 3 also holds each kernel to its plain
+version at ragged row counts up to past the main path's sizes, for
 shared, per-row and per-object codes, at random weights (where a fault of
-summation order would show).
+summation order would show): the f32 kernels at F32_ROWS with the tiling
+the launcher picks, and at 1, 33 and 2,049 rows with each tiling forced.
 
 Tolerances (kernel vs plain version, same inputs, on the card):
   * f32: sdf atol 2e-5; Jacobian atol 2e-4 on rows whose ReLU
     pre-activations all keep |pre| >= 1e-6 (nearer 0 another summation
-    order may take the other mask; at most 10% of rows are left out);
+    order may take the other mask; at most 10% of rows are left out, a
+    share checked where a case has >= 100 rows);
   * bf16 vs plain bf16: sdf atol 1e-2, Jacobian Frobenius relative 2e-2
     (same rounding points, f32 sums in another order can flip a bf16
     rounding).  The bf16 Jacobian kernel also reports the ReLU masks it
@@ -101,7 +106,7 @@ objects valid at the end, each slot keeping its nearest truth from
 creation on; every static center within 0.3 m of its truth
 (tests/test_multi_object.py's criterion) and none dynamic, the mover
 dynamic; the BA windows carry object edges; both f32 kernels
-(`csrc/mlp_sdf.cu`) launched inside the loop.  It prints per keyframe the
+(`csrc/mlp_sdf_f32.cu`) launched inside the loop.  It prints per keyframe the
 ms and kernel launches of association, refinement, new-object
 reconstruction (with the batched `sdf_bbox`) and insertion and of the
 whole `process`, then runs one keyframe again from its saved state for
@@ -111,7 +116,9 @@ the CPU on that keyframe's object stage: refined poses within 1e-3 m and
 tolerance).  Then it times both f32 kernels at this phase's row counts
 against their plain versions, f32 `torch.matmul` (TF32 off) and their
 bound (bytes over the memory rate, FLOPs over 67 TFLOP/s, the data
-sheet's f32 rate outside the tensor cores).  10c runs the mono object
+sheet's f32 rate outside the tensor cores), with the tiling (rows of a
+tile, CTAs of a cluster) the launcher picks and with each tiling forced,
+and the rate at which their CTAs stream the weights from L2.  10c runs the mono object
 pipeline over tests/test_mono_objects.py's 21-keyframe hand-built map
 (an ellipsoid of the fixture family) on the card and on the CPU: the
 object recovered, and the card held to the CPU up to the 180° turn
@@ -139,6 +146,8 @@ B, N_PTS, N_RAYS, ITERS = 8, 256, 512, 10
 # bf16 kernel sweeps: around their 64-row tile, and past the main path's sizes
 VALUE_ROWS = (1, 63, 64, 65, 300, 4097, 102417)
 JAC_ROWS = (1, 63, 64, 65, 300, 2048, 2049, 8192, 8193)
+# f32 kernel sweeps: around their 32-row tiles, refinement's 2,048 rows, the render term's
+F32_ROWS = (1, 31, 33, 511, 2048, 2049, 14336)
 # phase 8 bands on the largest translation error (m); see the docstring
 STEREO_BAND, RGBD_BAND = 0.166, 0.277
 # (bf16 dense tensor-core FLOP/s, memory bytes/s): NVIDIA data sheets
@@ -217,6 +226,34 @@ def code_forms(n, gen, dev):
                           ("per-object", gen.standard_normal((b, 64)), xyz.reshape(b, n // b, 3))):
         yield (form, torch.tensor(code * 0.2, dtype=torch.float32, device=dev),
                torch.tensor(x, dtype=torch.float32, device=dev))
+
+
+def hold_f32(mlp_sdf, dec, code, xyz, tag):
+    """Both f32 kernels against their plain version on the same inputs
+    (tolerances above) -> the case's numbers, with the tilings the
+    launches took."""
+    f32 = torch.float32
+    wb = dec.packed(f32)
+    n = xyz.numel() // 3
+    case = {"case": tag, "value_tiling": mlp_sdf.f32_tiling("value", n),
+            "jacobian_tiling": mlp_sdf.f32_tiling("jacobian", n)}
+    v_k = mlp_sdf.sdf_value_fused(wb, code, xyz, f32, dec.tiles(f32))
+    s_k, g_k = mlp_sdf.sdf_and_input_jacobian_fused(wb, code, xyz, f32,
+                                                    dec.tiles(f32, jacobian=True))
+    s_p, g_p = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, f32)
+    keep = mlp_sdf.relu_margin(wb, code, xyz) >= TIE
+    torch.cuda.synchronize()
+    check(v_k.shape == s_k.shape == s_p.shape and g_k.shape == g_p.shape
+          and all(bool(torch.isfinite(t).all()) for t in (v_k, s_k, g_k)),
+          f"{tag}: finite kernel output of the plain version's shape")
+    if n >= 100:
+        check(float(keep.float().mean()) >= 0.9, f"{tag}: <=10% near-tie rows")
+    case.update(value_sdf_err=float((v_k - s_p).abs().max()), sdf_err=float((s_k - s_p).abs().max()),
+                jac_err=float((g_k - g_p)[keep].abs().max()) if bool(keep.any()) else 0.0,
+                rows_checked=int(keep.sum()))
+    check(case["value_sdf_err"] <= SDF_ATOL and case["sdf_err"] <= SDF_ATOL
+          and case["jac_err"] <= JAC_ATOL, f"{tag}: {case}")
+    return case
 
 
 def frob_rel(a, b):
@@ -857,10 +894,13 @@ def drive_objects(world, texture, truths, dec, n, dev, probe):
 
 
 def time_f32_kernel(mlp_sdf, dec, kind, rows, n_obj, mem_bw, dev):
-    """The f32 kernel (`csrc/mlp_sdf.cu`) at `rows` rows of n_obj objects:
-    held to its plain version (sdf 2e-5, Jacobian 2e-4 off ReLU near-tie
-    rows), its time, the plain version's, one f32 torch.matmul per layer
-    product (TF32 off) and the bound."""
+    """The f32 kernel (`csrc/mlp_sdf_f32.cu`) at `rows` rows of n_obj
+    objects: held to its plain version (sdf 2e-5, Jacobian 2e-4 off ReLU
+    near-tie rows), its time with the tiling the launcher picks and with
+    each tiling forced, the plain version's, one f32 torch.matmul per
+    layer product (TF32 off), the bound, and the rate at which its CTAs
+    stream the weights from L2 (each tile reads each stream once, and the
+    Jacobian's w0ᵀ block once per CTA)."""
     from dsp_slam_rgbd_tpu_torch.tools import ellipsoid
 
     wb = dec.packed(torch.float32)
@@ -873,7 +913,9 @@ def time_f32_kernel(mlp_sdf, dec, kind, rows, n_obj, mem_bw, dev):
     code = torch.tensor(code_np, dtype=torch.float32, device=dev)
     xyz = torch.tensor(xyz_np, dtype=torch.float32, device=dev)
     jac = kind == "jacobian"
-    kern = mlp_sdf.sdf_and_input_jacobian_fused if jac else mlp_sdf.sdf_value_fused
+    tiles = dec.tiles(torch.float32, jacobian=jac)
+    kern = functools.partial(mlp_sdf.sdf_and_input_jacobian_fused if jac
+                             else mlp_sdf.sdf_value_fused, tiles=tiles)
     plain = mlp_sdf.sdf_and_input_jacobian_plain if jac else mlp_sdf.sdf_value_plain
     out_k, out_p = kern(wb, code, xyz), plain(wb, code, xyz)
     if jac:
@@ -900,8 +942,19 @@ def time_f32_kernel(mlp_sdf, dec, kind, rows, n_obj, mem_bw, dev):
                 torch.matmul(h, W[i].T)
 
     ms = cuda_ms(lambda: kern(wb, code, xyz), 10)
+    bm, cluster = mlp_sdf.f32_tiling(kind, rows)
+    tiling_ms = {}
+    try:
+        for t in mlp_sdf.F32_TILINGS:
+            mlp_sdf.force_f32_tiling(t)
+            tiling_ms[f"{t[0]}x{t[1]}"] = cuda_ms(lambda: kern(wb, code, xyz), 10)
+    finally:
+        mlp_sdf.force_f32_tiling(None)
     plain_ms = cuda_ms(lambda: plain(wb, code, xyz), 3)
     library_ms = cuda_ms(library, 10)
+    tiles_n = -(-rows // bm)
+    l2_bytes = tiles_n * 4 * (mlp_sdf.F32_VALUE_FLOATS + (
+        mlp_sdf.F32_BACKWARD_FLOATS + (cluster - 1) * 512 * 128 if jac else 0))
     fwd_macs = sum(i * o for i, o in dec.spec.layer_dims())
     flops = 2.0 * fwd_macs * rows * (2 if jac else 1)
     io = (sum(t.numel() * 4 for t in wb) + code.numel() * 4 + xyz.numel() * 4
@@ -909,7 +962,9 @@ def time_f32_kernel(mlp_sdf, dec, kind, rows, n_obj, mem_bw, dev):
     t_ops, t_bytes = flops / F32_PEAK * 1e3, io / mem_bw * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "max_abs_err": err, "rows": rows, "dtype": "f32", "tflops": flops / ms / 1e9}
+            "max_abs_err": err, "rows": rows, "dtype": "f32", "tflops": flops / ms / 1e9,
+            "tiling": f"{bm}x{cluster}", "tiling_ms": tiling_ms, "l2_bytes": l2_bytes,
+            "l2_tb_per_s": l2_bytes / ms / 1e9}
 
 
 def rot_angle(Ra, Rb):
@@ -1065,23 +1120,27 @@ def objects_phase(dev, smi, mem_bw):
              "jacobian_refine": time_f32_kernel(mlp_sdf, dec, "jacobian", A * 256, A, mem_bw, dev)}
     rep["f32_timing"] = times
     for label, t in times.items():
-        print(f"phase 10 f32 timing {label}: rows {t['rows']} kernel {t['ms']:.3f} ms "
-              f"({t['tflops']:.1f} TFLOP/s), plain {t['plain_ms']:.3f} ms, torch.matmul f32 "
-              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
-              f"max_abs_err {t['max_abs_err']:.3g} on {smi}", flush=True)
+        print(f"phase 10 f32 timing {label}: rows {t['rows']} kernel {t['ms']:.3f} ms at "
+              f"{t['tiling']} ({t['tflops']:.1f} TFLOP/s; rows x cluster: " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in t["tiling_ms"].items())
+              + f"), plain {t['plain_ms']:.3f} ms, torch.matmul f32 {t['library_ms']:.3f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), weights from L2 "
+              f"{t['l2_bytes'] / 1e9:.3f} GB = {t['l2_tb_per_s']:.2f} TB/s, max_abs_err "
+              f"{t['max_abs_err']:.3g} on {smi}", flush=True)
     rep["mono"] = mono_phase(dev, dec, dec_cpu, smi)
     rep["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 10 took {rep['phase_s']:.0f} s", flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rows",
-            "dtype")
+            "dtype", "tiling")
     kernels = [
-        dict(name="mlp_sdf_value_f32", route="cuda", source="dsp_slam_rgbd_tpu_torch/csrc/mlp_sdf.cu",
+        dict(name="mlp_sdf_value_f32", route="cuda",
+             source="dsp_slam_rgbd_tpu_torch/csrc/mlp_sdf_f32.cu",
              replaces="dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py:237",
              launches=launches["mlp_sdf_value"],
              **{k: v for k, v in times["value_render"].items() if k in keys},
              small={k: v for k, v in times["value_bbox"].items() if k in keys}),
         dict(name="mlp_sdf_jacobian_f32", route="cuda",
-             source="dsp_slam_rgbd_tpu_torch/csrc/mlp_sdf.cu",
+             source="dsp_slam_rgbd_tpu_torch/csrc/mlp_sdf_f32.cu",
              replaces="dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py:159",
              launches=launches["mlp_sdf_jacobian"],
              **{k: v for k, v in times["jacobian_render"].items() if k in keys},
@@ -1226,6 +1285,19 @@ def main(argv=None):
               f"{cfg_k['threads']} threads, {cfg_k['rows_per_block']} rows per block, "
               f"{cfg_k['registers']} registers, {cfg_k['local_bytes']} B local", flush=True)
     vcfg, jcfg = cfgs["value"], cfgs["jacobian"]
+    f32cfg = mlp_sdf.f32_kernel_config()
+    report["build"]["f32_kernels"] = f32cfg
+    for kind, tilings in f32cfg.items():
+        for cfg_k in tilings:
+            check(cfg_k["local_bytes"] == 0, f"the f32 {kind} kernel does not spill: {cfg_k}")
+        print(f"phase 2 f32 {kind} kernel (csrc/mlp_sdf_f32.cu): " + "; ".join(
+            f"{k['rows_per_tile']} rows x C={k['cluster']}: {k['smem_bytes']} B shared memory "
+            f"per CTA, {k['threads']} threads, {k['ring_slots']} ring slots of {k['slot_bytes']} "
+            f"B, {k['registers']} registers, {k['local_bytes']} B local, "
+            f"{k['clusters_resident']} clusters resident" for k in tilings)
+            + "; tiling by rows: " + ", ".join(
+            f"{n}: {mlp_sdf.f32_tiling(kind, n)}"
+            for n in (1, 512, 1024, 2048, 4096, 14336, 57344, 96768)), flush=True)
 
     # ---- 3. kernels vs plain versions at cars_64 width
     dec = deepsdf.init_decoder(deepsdf.DecoderSpec(), seed=0, device=dev)
@@ -1240,9 +1312,10 @@ def main(argv=None):
         for dt in (torch.float32, torch.bfloat16):
             wb = dec.packed(dt)
             tag = f"n={n} {'per-row' if per_row else 'shared'} {dt}"
-            v_k = mlp_sdf.sdf_value_fused(wb, code, xyz, dt, dec.value_tiles)
+            v_k = mlp_sdf.sdf_value_fused(wb, code, xyz, dt, dec.tiles(dt))
             if dt == torch.float32:
-                s_k, g_k = mlp_sdf.sdf_and_input_jacobian_fused(wb, code, xyz, dt)
+                s_k, g_k = mlp_sdf.sdf_and_input_jacobian_fused(wb, code, xyz, dt,
+                                                                dec.tiles(dt, jacobian=True))
                 s_p, g_p = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, dt)
                 torch.cuda.synchronize()
                 for t in (s_k, g_k):
@@ -1287,9 +1360,28 @@ def main(argv=None):
         for form, code, xyz in code_forms(n, gen, dev):
             cases.append(hold_bf16_jacobian(mlp_sdf, dec.packed(bf), dec.jacobian_tiles, code,
                                             xyz, f"jacobian n={n} {form} bf16")[3])
+    # both f32 kernels at ragged sizes and every code form, with the tiling
+    # the launcher picks and with each tiling forced
+    f32_seen = set()
+    for force, rows in ((None, F32_ROWS),) + tuple((t, (1, 33, 2049))
+                                                   for t in mlp_sdf.F32_TILINGS):
+        mlp_sdf.force_f32_tiling(force)
+        try:
+            for n in rows:
+                for form, code, xyz in code_forms(n, gen, dev):
+                    case = hold_f32(mlp_sdf, dec, code, xyz, f"f32 n={n} {form} "
+                                    + (f"{force} forced" if force else "tiling picked"))
+                    f32_seen |= {("value", case["value_tiling"]),
+                                 ("jacobian", case["jacobian_tiling"])}
+                    cases.append(case)
+        finally:
+            mlp_sdf.force_f32_tiling(None)
+    check(f32_seen == {(k, t) for k in ("value", "jacobian") for t in mlp_sdf.F32_TILINGS},
+          f"every f32 kernel ran at every tiling: {sorted(f32_seen)}")
     report["kernel_vs_plain"] = cases
     print("phase 3 kernels vs plain: " + "; ".join(
-        f"{c['case']}: " + ", ".join(f"{k} {v:.3g}" for k, v in c.items() if k != "case")
+        f"{c['case']}: " + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                                     for k, v in c.items() if k != "case")
         for c in cases), flush=True)
 
     # ---- 4. the main path: batched reconstruction, bench.py's shapes

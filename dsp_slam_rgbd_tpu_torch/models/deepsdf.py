@@ -68,10 +68,11 @@ class DeepSDFDecoder(nn.Module):
 
     For the cars/chairs_64 layout the fused kernels' packed weights are
     built at construction and rebuilt on every `.to()`/`.cuda()`, in f32
-    and as a bf16 copy (`packed`), with the bf16 kernels' weight streams
-    beside them: the forward's (`value_tiles`) and the Jacobian's backward
-    sweep's (`backward_tiles`); the Jacobian kernel reads both
-    (`jacobian_tiles`).
+    and as a bf16 copy (`packed`), with the kernels' weight streams beside
+    them: in bf16 the forward's (`value_tiles`) and the Jacobian's backward
+    sweep's (`backward_tiles`), which the Jacobian kernel reads both of
+    (`jacobian_tiles`); in f32 `value_tiles_f32` and `backward_tiles_f32`.
+    `tiles(compute_dtype, jacobian)` gives the ones a kernel takes.
     """
 
     def __init__(self, spec: DecoderSpec, layers):
@@ -108,17 +109,29 @@ class DeepSDFDecoder(nn.Module):
     def _pack(self) -> None:
         self._packed = {}
         self.value_tiles = self.backward_tiles = None
+        self.value_tiles_f32 = self.backward_tiles_f32 = None
         if self.fused:
             wb = mlp_sdf.pack_params(self.layers, self.spec)
             w0, W, b = self._packed[torch.bfloat16] = mlp_sdf.cast_packed(wb, torch.bfloat16)
             self._packed[torch.float32] = wb
             self.value_tiles = mlp_sdf.pack_value_tiles(w0, W)
             self.backward_tiles = mlp_sdf.pack_backward_tiles(w0, W)
+            self.value_tiles_f32 = mlp_sdf.pack_value_tiles_f32(wb[0], wb[1])
+            self.backward_tiles_f32 = mlp_sdf.pack_backward_tiles_f32(wb[0], wb[1])
 
     @property
     def jacobian_tiles(self):
         """(forward, backward) weight streams of the bf16 Jacobian kernel."""
         return self.value_tiles, self.backward_tiles
+
+    def tiles(self, compute_dtype=torch.float32, jacobian=False):
+        """The weight stream(s) the kernels read in compute_dtype: the
+        forward stream for the value kernel, the (forward, backward) pair
+        for the Jacobian kernel."""
+        if compute_dtype == torch.bfloat16:
+            return self.jacobian_tiles if jacobian else self.value_tiles
+        return ((self.value_tiles_f32, self.backward_tiles_f32) if jacobian
+                else self.value_tiles_f32)
 
     def _apply(self, fn, recurse=True):
         super()._apply(fn, recurse)
@@ -196,7 +209,7 @@ class DeepSDFDecoder(nn.Module):
         the plain sweep otherwise."""
         if self.fused:
             return mlp_sdf.sdf_value_fused(self.packed(compute_dtype), code,
-                                           xyz, compute_dtype, self.value_tiles)
+                                           xyz, compute_dtype, self.tiles(compute_dtype))
         return self.sdf(code, xyz, compute_dtype)
 
     def query_with_jacobian(self, code, xyz, compute_dtype=torch.float32):
@@ -204,7 +217,8 @@ class DeepSDFDecoder(nn.Module):
         layout, the plain sweep otherwise."""
         if self.fused:
             return mlp_sdf.sdf_and_input_jacobian_fused(
-                self.packed(compute_dtype), code, xyz, compute_dtype, self.jacobian_tiles)
+                self.packed(compute_dtype), code, xyz, compute_dtype,
+                self.tiles(compute_dtype, jacobian=True))
         return self.sdf_and_input_jacobian(code, xyz, compute_dtype)
 
 

@@ -66,6 +66,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mlp_sdf_jacobian.restype = i
     lib.mlp_sdf_jacobian_tc_config.argtypes = [ctypes.POINTER(i)]
     lib.mlp_sdf_jacobian_tc_config.restype = i
+    lib.mlp_sdf_f32_config.argtypes = [ctypes.POINTER(i)]
+    lib.mlp_sdf_f32_config.restype = i
+    lib.mlp_sdf_f32_tiling.argtypes = [i, i]
+    lib.mlp_sdf_f32_tiling.restype = i
+    lib.mlp_sdf_f32_force_tiling.argtypes = [i]
+    lib.mlp_sdf_f32_force_tiling.restype = i
     lib.mlp_sdf_error_string.argtypes = [i]
     lib.mlp_sdf_error_string.restype = ctypes.c_char_p
 

@@ -221,13 +221,14 @@ def test_kernels_match_plain_on_card(dtype):
     code, xyz = (torch.tensor(a, device="cuda") for a in _inputs(7, 300, per_row=True))
     wb = dec.packed(dt)
     if dt == torch.float32:
-        s_k, g_k = mlp_sdf.sdf_and_input_jacobian_fused(wb, code, xyz, dt)
+        s_k, g_k = mlp_sdf.sdf_and_input_jacobian_fused(wb, code, xyz, dt,
+                                                        dec.tiles(dt, jacobian=True))
     else:
         relu = torch.empty(300, 8, 512, dtype=torch.uint8, device="cuda")
         s_k, g_k = mlp_sdf.sdf_and_input_jacobian_fused(wb, code, xyz, dt, dec.jacobian_tiles,
                                                         masks_out=relu)
     s_p, g_p = mlp_sdf.sdf_and_input_jacobian_plain(wb, code, xyz, dt)
-    v_k = mlp_sdf.sdf_value_fused(wb, code, xyz, dt, dec.value_tiles)
+    v_k = mlp_sdf.sdf_value_fused(wb, code, xyz, dt, dec.tiles(dt))
     torch.cuda.synchronize()
     sdf_atol = SDF_ATOL if dt == torch.float32 else BF16_SDF_ATOL
     np.testing.assert_allclose(s_k.cpu().numpy(), s_p.cpu().numpy(), atol=sdf_atol)
