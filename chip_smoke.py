@@ -11,7 +11,8 @@ kernel at the main path's shapes, then drives the per-frame tracking path
 and the keyframe stage at KITTI size (phases 8 and 9a), bundle
 adjustment at KITTI-00 scale (phases 9b and 9c), and the keyframe
 `MappingStage` with its object stage, where the f32 kernels run inside
-the SLAM loop (phase 10), and the mono object pipeline (10c).  Exits non-zero, with no
+the SLAM loop (phase 10), the mono object pipeline (10c), and monocular
+initialization and loop closing (phase 11).  Exits non-zero, with no
 result line, if there is no card or any phase fails.  Prints, before the
 last line, the card's name and power limit and one JSON line of kernel
 numbers; the last line is {"ok": true, "device": {...}}.  With --report,
@@ -124,6 +125,43 @@ pipeline over tests/test_mono_objects.py's 21-keyframe hand-built map
 object recovered, and the card held to the CPU up to the 180° turn
 about the object's y axis that the PCA cuboid's eigenvector sign allows
 (1e-3 through the first fit, 0.05 m after the second: `mono_phase`).
+
+Phase 11 drives monocular initialization and loop closing (torch ops on
+the card; they launch no kernel of the port), through
+tests/tracking_driver.py's "mono", "loop" and "reloc" stages:
+  * 11a: 14 monocular frames of `tools/plane_world.py`'s KITTI_FLOOR
+    (phase 8's KITTI-size wall on a floor 1.65 m below the camera, 0.54 m
+    a frame: tests/test_mono_e2e.py's parallax ratio), phase 8's
+    configuration with OrbConfig()'s 2,000 features: the tracker's H/F
+    initialization, `system/slam.py::insert_mono_init`, then
+    `MappingStage.process` at every keyframe: initialized, >= 60% of frames
+    OK, >= 2 keyframes, Sim(3)-aligned ATE under 8% of the path (the JAX
+    test's bars); ms of the initialization step and of its RANSAC alone,
+    ms per frame, host syncs with the line that makes each.
+  * a vocabulary of 10^4 words (branching 10, depth 4) trained here on
+    110,000 descriptors as tests/test_vocab_scale.py makes them;
+  * 11b: phase 8's 24 stereo frames with `MappingStage(vocab=...)` at every
+    keyframe: no loop closure on a path without a revisit, the culled
+    keyframes purged from the database, phase 8's bands; ms of
+    `_update_bow` and `_loop_stage` per keyframe, launches, host syncs;
+  * 11c: tests/test_loop_integration.py's revisit map built at phase 8's
+    capacity (`tools/revisit_map.py`: 48 / 2,048 / 32,768 slots, 2,000
+    points a side, KITTI intrinsics) through `_loop_stage` until the loop
+    closes: >= 1 closure, 0 < the global-BA budget left < 10 and drained in
+    <= 10 slices, KF7's error against KF0 below 0.6x its value before (the
+    test's bars), and the card against the port on the CPU with the same
+    CPU-drawn RANSAC samples: equal closures and fused points, keyframe
+    poses within 1e-3; ms of `compute_loop_sim3`, `correct_loop`,
+    `fuse_duplicate_points` and the first global-BA slice, launches, syncs;
+  * 11d: retrieval at KITTI-00 capacity (tests/test_loop_scale.py's map:
+    2,048 keyframe slots / 1,200 live, 300,000 point slots / 150,000
+    live, 1,024 words): the packed candidate matrix's shape, one host read
+    per query, ms of `_loop_candidates_device` and of
+    `detect_reloc_candidates_grouped` (mean of 3 queries);
+  * 11e: tests/test_reloc_e2e.py's sequence on phase 8's stereo world (6
+    frames, 2 blank frames, back at frame 2's viewpoint) with the
+    tracker's candidates from `system/slam.py::reloc_candidates`: LOST in
+    the blackout, recovered with BoW candidates within 0.08 m.
 """
 import argparse
 import functools
@@ -529,8 +567,10 @@ def tracking_phase(dev, smi):
     return rep
 
 
-def count_syncs(fn):
-    """Host syncs of one call of fn (`torch.cuda.set_sync_debug_mode`)."""
+def count_syncs(fn, sites=None):
+    """Host syncs of one call of fn (`torch.cuda.set_sync_debug_mode`); with
+    a dict `sites`, also each sync's count by the line that made it
+    ("path:line", relative to the repo or to site-packages)."""
     import warnings
 
     with warnings.catch_warnings(record=True) as caught:
@@ -540,7 +580,14 @@ def count_syncs(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum(1 for w in caught if "synchroniz" in str(w.message))
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    if sites is not None:
+        for w in syncs:
+            f = (os.path.relpath(w.filename, ROOT) if w.filename.startswith(ROOT)
+                 else w.filename.split("site-packages/")[-1])
+            key = f"{f}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return len(syncs)
 
 
 def traced(fn, top=None):
@@ -1238,6 +1285,322 @@ def mono_phase(dev, dec, dec_cpu, smi):
     return rep
 
 
+
+# ---------------------------------------------------------------------------
+# phase 11: monocular initialization and loop closing
+
+
+def _timed(fn, times, name):
+    """fn wrapped to append its synchronized wall ms to times[name]."""
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapped
+
+
+def with_syncs(fn, sites=None):
+    """(fn(), host syncs of that call); `sites` as for `count_syncs`."""
+    out = []
+    n = count_syncs(lambda: out.append(fn()), sites)
+    return out[0], n
+
+
+def aliased_descriptors(rng, n_train=110_000, n_kf=100, per_kf=256):
+    """tests/test_vocab_scale.py's training set: 100 keyframes of 256
+    descriptors, half from one shared texture pool, half place-specific
+    (60 places, KFs 60..99 revisit 0..39), each with 6 bits flipped, then
+    random descriptors up to n_train."""
+    def rand(n):
+        return rng.integers(0, 2 ** 32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+
+    def perturb(d, bits=6):
+        d = d.copy()
+        for _ in range(bits):
+            d[np.arange(len(d)), rng.integers(0, 8, len(d))] ^= \
+                np.uint32(1) << rng.integers(0, 32, len(d)).astype(np.uint32)
+        return d
+
+    pool = rand(2000)
+    place = [rand(per_kf // 2) for _ in range(60)]
+    kfs = [np.concatenate([perturb(pool[rng.choice(2000, per_kf // 2, replace=False)]),
+                           perturb(place[k if k < 60 else k - 60])]) for k in range(n_kf)]
+    return np.concatenate(kfs + [rand(n_train - n_kf * per_kf)])
+
+
+def loop_phase(dev, smi):
+    """Phase 11 (see the module docstring) -> the report's "loop" entry."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import tracking_driver as td
+    from dsp_slam_rgbd_tpu_torch.loop import keyframe_db, loop_closing, vocabulary
+    from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
+    from dsp_slam_rgbd_tpu_torch.mapping import map_state as ms
+    from dsp_slam_rgbd_tpu_torch.ops import lie
+    from dsp_slam_rgbd_tpu_torch.solvers import initializer as init_mod
+    from dsp_slam_rgbd_tpu_torch.solvers import sim3
+    from dsp_slam_rgbd_tpu_torch.system import mapping_stage as mstage
+    from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw
+    from dsp_slam_rgbd_tpu_torch.tools import revisit_map
+    from dsp_slam_rgbd_tpu_torch.tracking import tracker as trk
+    from dsp_slam_rgbd_tpu_torch.weights import (bow_database_from_numpy,
+                                                 map_state_from_numpy)
+
+    t_phase = time.perf_counter()
+    rep = {"card": smi}
+
+    # ---- 11a. mono: H/F initialization, insert_mono_init, the keyframe stage
+    world = pw.KITTI_FLOOR
+    cfg_m = tracking_config(world, "mono")
+    n = 14
+    tex_m = pw.make_texture(world)
+    seq = td.frames(world, tex_m, "mono", n, u8=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr, n_kf, culled = td.drive(ms, lm, trk, cfg_m, seq, code_len=64, stage="mono",
+                                objects=td.loop_inputs(mstage, True), device=dev)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    ok = np.array([bool(o) for _, _, o in tr.trajectory])
+    T = torch.stack([p for _, p, o in tr.trajectory if o]) if ok.any() else None
+    gt = torch.tensor([[round(ts / 0.1) * world.step, 0.0, 0.0]
+                       for ts, _, o in tr.trajectory if o], device=dev)
+    ate = float(sim3.align_trajectories(lie.inv_se3(T)[:, :3, 3], gt)[1]) if T is not None \
+        else float("inf")
+    path = float(gt[-1, 0] - gt[0, 0]) if T is not None else 0.0
+    # the trajectory starts at the initializing frame
+    init_frame = int(round(tr.trajectory[int(np.argmax(ok))][0] / 0.1)) if ok.any() else -1
+    check(init_frame >= 1, f"11a mono initialized: {ok}")
+    # the same frames again on a fresh tracker (the same CPU draws): the
+    # initializing step whole (extraction included), its host syncs by the
+    # line that makes them, and the RANSAC (draw + evaluation) alone
+    tr2 = trk.Tracker(cfg_m, tr.state, device=dev)
+    for i in range(init_frame):
+        tr2.track(seq[i][0], timestamp=i * 0.1)
+    init_sites = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out2, init_syncs = with_syncs(lambda: tr2.track(seq[init_frame][0],
+                                                    timestamp=init_frame * 0.1)[-1], init_sites)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    check(out2["ok"], "11a the initialization again on a fresh tracker")
+    m, f_init = tr2.init_result["matches"], tr2.init_result["cur_frame"]
+    uv1, uv2 = tr2.init_ref.feats.xy, f_init.feats.xy[torch.clamp_min(m.idx, 0)]
+    ransac = lambda: init_mod.initialize(cfg_m.cam, uv1, uv2, m.valid,  # noqa: E731
+                                         torch.Generator().manual_seed(0))
+    ransac_ms = wall_ms(ransac, 3)
+    ransac_sites = {}
+    ransac_syncs = count_syncs(ransac, ransac_sites)
+    one_ms = wall_ms(lambda: tr2._mono_init(f_init), 3)   # host-read inclusive
+    frame_syncs = count_syncs(lambda: tr.track(pw.render_u8(world, tex_m, pw.gt_x(world, n)),
+                                               timestamp=n * 0.1))
+    rep["mono"] = {"world": "KITTI_FLOOR: 1241x376, wall 18 m away on a floor 1.65 m below, "
+                            "0.54 m a frame", "features": cfg_m.orb.n_features, "frames": n,
+                   "matches": int(torch.sum(m.valid)), "ok_share": float(ok.sum() / n),
+                   "keyframes": n_kf, "init_frame": init_frame, "ate_m": ate, "path_m": path,
+                   "ms_per_frame": run_ms / n, "init_step_ms": init_ms,
+                   "init_step_ms_mean3": one_ms, "init_ransac_ms": ransac_ms,
+                   "init_host_syncs": init_syncs, "init_sync_sites": init_sites,
+                   "ransac_host_syncs": ransac_syncs, "ransac_sync_sites": ransac_sites,
+                   "frame_host_syncs": frame_syncs}
+    check(ok.sum() >= 0.6 * n and n_kf >= 2 and ate < 0.08 * path,
+          f"11a mono: {rep['mono']}")
+    print(f"phase 11a mono (KITTI_FLOOR 1241x376, OrbConfig() {cfg_m.orb.n_features} features, "
+          f"phase 8's MapConfig, {n} frames): initialized at frame {init_frame} from "
+          f"{int(torch.sum(m.valid))} matches, ok {ok.sum() / n:.3f}, {n_kf} keyframes, Sim(3)-"
+          f"aligned ATE {ate:.4f} m of a {path:.2f} m path; {run_ms / n:.1f} ms per frame with "
+          f"the keyframe stage; the initialization step {init_ms:.1f} ms ({init_syncs} host "
+          f"syncs; {one_ms:.1f} ms mean of 3), its RANSAC alone {ransac_ms:.1f} ms "
+          f"({ransac_syncs} host syncs: {ransac_sites}); the step's syncs by line: "
+          f"{init_sites}; {frame_syncs} host syncs in a tracking frame on {smi}", flush=True)
+
+    # ---- vocabulary: depth 4, branching 10, trained here
+    t0 = time.perf_counter()
+    vocab = vocabulary.train(aliased_descriptors(np.random.default_rng(7)), branching=10,
+                             depth=4, seed=0, device=dev)
+    rep["vocab_train_s"] = time.perf_counter() - t0
+
+    # ---- 11b. the stereo sequence with loop detection at every keyframe
+    kworld = pw.KITTI
+    texture = pw.make_texture(kworld)
+    cfg_s = tracking_config(kworld, "stereo")
+    times = {}
+
+    def timed_stage(cfg, state, kv):
+        mp = mstage.MappingStage(cfg, state, kv, vocab=vocab)
+        for name in ("_update_bow", "_loop_stage", "process"):
+            setattr(mp, name, _timed(getattr(mp, name), times, name))
+        return mp
+
+    inputs = td.loop_inputs(mstage, True, vocab=vocab)
+    inputs["stage"] = timed_stage
+    tr, n_kf, culled = td.drive(ms, lm, trk, cfg_s, td.frames(kworld, texture, "stereo", 24,
+                                                               u8=True),
+                                code_len=64, stage="loop", objects=inputs, device=dev)
+    mp = tr.mapping
+    ok = np.array([bool(o) for _, _, o in tr.trajectory])
+    Tn = np.stack([p.cpu().numpy() for _, p, _ in tr.trajectory]).astype(np.float64)
+    err = np.abs(-Tn[:, 0, 3] - np.array([pw.gt_x(kworld, i) for i in range(len(Tn))]))
+    db_ok = np.array_equal(mp.db.kf_valid.cpu().numpy(), mp.kf_valid_host)
+    slot = int(np.flatnonzero(mp.kf_valid_host)[-1])
+    fid = int(mp.state.kf_frame_id[slot])
+    bow_launches, bow_busy = traced(lambda: mp._update_bow(slot))
+    _, bow_syncs = with_syncs(lambda: mp._update_bow(slot))
+    loop_launches, loop_busy = traced(lambda: mp._loop_stage(slot, n_kf - 1, fid))
+    _, loop_syncs = with_syncs(lambda: mp._loop_stage(slot, n_kf - 1, fid))
+    rep["stereo_loop"] = {"keyframes": n_kf, "culled": culled, "ok_share": float(ok.mean()),
+                          "max_t_err_m": float(err[ok].max()), "loop_closures": mp.loop_closures,
+                          "db_matches_keyframes": db_ok,
+                          "update_bow_ms": times.get("_update_bow", []),
+                          "loop_stage_ms": times.get("_loop_stage", []),
+                          "process_ms": times.get("process", []),
+                          "update_bow_launches": bow_launches, "update_bow_busy_ms": bow_busy,
+                          "update_bow_host_syncs": bow_syncs,
+                          "loop_stage_launches": loop_launches, "loop_stage_busy_ms": loop_busy,
+                          "loop_stage_host_syncs": loop_syncs,
+                          "vocab_train_s": rep["vocab_train_s"]}
+    check(mp.loop_closures == 0 and db_ok and len(culled) >= 1 and ok.mean() >= 0.9
+          and float(err[ok].max()) < STEREO_BAND, f"11b stereo loop stage: {rep['stereo_loop']}")
+    lms = times.get("_loop_stage", [])
+    print(f"phase 11b stereo KITTI, 24 frames, MappingStage(vocab=10^4 words, trained in "
+          f"{rep['vocab_train_s']:.1f} s): {n_kf} keyframes, culled {culled} (purged from the "
+          f"database: {db_ok}), {mp.loop_closures} loop closures, largest error "
+          f"{float(err[ok].max()):.4f} m; per keyframe _update_bow median "
+          f"{_median(times.get('_update_bow', [])):.2f} ms, _loop_stage median {_median(lms):.2f} "
+          f"ms ({len(lms)} calls), process median "
+          f"{_median(times.get('process', [])):.1f} ms; on the last keyframe _update_bow "
+          f"{bow_launches} launches / {bow_syncs} host syncs, _loop_stage {loop_launches} "
+          f"launches (busy {loop_busy:.2f} ms) / {loop_syncs} host syncs on {smi}", flush=True)
+
+    # ---- 11c. a loop closes on the revisit map at phase 8's capacity
+    cam_k = cfg_s.cam
+    fields, _ = revisit_map.build_revisit_state(
+        np.random.default_rng(0), n_pts=2000, max_kf=48, max_feat=2048, max_pts=32768,
+        max_obj=8, cam=(cam_k.fx, cam_k.fy, cam_k.cx, cam_k.cy))
+    vocab_cpu = vocabulary.Vocabulary(tuple(c.cpu() for c in vocab.centroids), vocab.branching,
+                                      vocab.depth)
+
+    def close_loop(d, voc):
+        """The revisit map's returning keyframes through `_loop_stage` (3
+        consecutive detections, closing on the 4th) -> (stage, initial
+        state, the closing call's result)."""
+        st0 = map_state_from_numpy(fields, d)
+        kv = np.zeros(48, bool)
+        kv[:8] = True
+        mpc = mstage.MappingStage(cfg_s, st0, kv, vocab=voc)
+        for k in range(8):
+            mpc._update_bow(k)
+        out = None
+        for q, f in ((5, 30), (6, 34), (7, 38), (7, 38)):
+            out = mpc._loop_stage(q, 7, f)
+        return mpc, st0, out
+
+    patched = {(loop_closing, "compute_loop_sim3"), (loop_closing, "correct_loop"),
+               (loop_closing, "fuse_duplicate_points"), (lm, "global_ba_step")}
+    originals = {(mod, name): getattr(mod, name) for mod, name in patched}
+    closing_launches, closing_busy = traced(lambda: close_loop(dev, vocab))  # warms up too
+    (_, _, _), closing_syncs = with_syncs(lambda: close_loop(dev, vocab))
+    parts = {}
+    try:
+        for mod, name in patched:
+            setattr(mod, name, _timed(originals[(mod, name)], parts, name))
+        mpc, st0, remap = close_loop(dev, vocab)
+    finally:
+        for (mod, name), f in originals.items():
+            setattr(mod, name, f)
+    closed_poses = mpc.state.kf_pose.cpu()
+    gba_left = mpc._gba_iters_left
+    drains = 0
+    while mpc._gba_iters_left > 0 and drains <= 10:
+        mpc._drain_gba_budget()
+        drains += 1
+    e_before = float(torch.linalg.vector_norm(lie.log_se3(st0.kf_pose[7] @ lie.inv_se3(
+        st0.kf_pose[0]))))
+    e_after = float(torch.linalg.vector_norm(lie.log_se3(mpc.state.kf_pose[7] @ lie.inv_se3(
+        mpc.state.kf_pose[0]))))
+    # the card against the CPU, the same draws (the CPU generator)
+    mcpu, _, remap_cpu = close_loop(torch.device("cpu"), vocab_cpu)
+    pose_diff = float((closed_poses - mcpu.state.kf_pose).abs().max())
+    fused = int((remap.cpu() != torch.arange(remap.shape[0])).sum()) if remap is not None else 0
+    fused_cpu = int((remap_cpu != torch.arange(remap_cpu.shape[0])).sum()) \
+        if remap_cpu is not None else 0
+    rep["loop_close"] = {"closures": mpc.loop_closures, "gba_iters_left": gba_left,
+                         "drains": drains, "kf7_err_before": e_before, "kf7_err_after": e_after,
+                         "fused_points": fused, "fused_points_cpu": fused_cpu,
+                         "card_vs_cpu_pose_diff": pose_diff,
+                         "ms": {k: v for k, v in parts.items()},
+                         "sequence_launches": closing_launches,
+                         "sequence_busy_ms": closing_busy,
+                         "sequence_host_syncs": closing_syncs}
+    check(mpc.loop_closures >= 1 and 0 < gba_left < 10 and drains <= 10
+          and mpc._gba_iters_left == 0 and e_after < 0.6 * e_before
+          and mcpu.loop_closures >= 1 and fused == fused_cpu
+          and pose_diff < 1e-3, f"11c loop closes: {rep['loop_close']}")
+    print(f"phase 11c revisit map (8 keyframes, 2,000 points a side, capacity 48 / 2,048 / "
+          f"32,768): {mpc.loop_closures} closure, global-BA budget left {gba_left} drained in "
+          f"{drains} slices, KF7 error against KF0 {e_before:.4f} -> {e_after:.4f}, "
+          f"{fused} points fused (CPU {fused_cpu}), card vs CPU poses {pose_diff:.2e}; ms: "
+          + ", ".join(f"{k} {np.mean(v):.1f}" for k, v in parts.items())
+          + f"; the whole sequence (upload, 8 BoW updates, 4 _loop_stage calls): "
+          f"{closing_launches} launches (busy {closing_busy:.1f} ms), {closing_syncs} host "
+          f"syncs on {smi}", flush=True)
+
+    # ---- 11d. retrieval at KITTI-00 capacity
+    K = 2048
+    fields_r, db_r = revisit_map.random_retrieval_map(np.random.default_rng(2), K, 1024,
+                                                      300_000, 1200, 150_000, 200, 1024)
+    st_r = map_state_from_numpy(fields_r, dev)
+    db = bow_database_from_numpy(db_r, dev)
+    del fields_r
+    out = mstage._loop_candidates_device(st_r, db, 1100, 10_000, 8).cpu()
+    check(tuple(out.shape) == (2 + 8, 8 + K), f"11d packed matrix shape {tuple(out.shape)}")
+    q_ms = wall_ms(lambda: [mstage._loop_candidates_device(st_r, db, q, 10_000, 8).cpu()
+                            for q in (900, 1000, 1150)], 1) / 3
+    q_syncs = [with_syncs(lambda: mstage._loop_candidates_device(st_r, db, q, 10_000,
+                                                                 8).cpu())[1]
+               for q in (900, 1000, 1150)]
+    r_ms = wall_ms(lambda: [keyframe_db.detect_reloc_candidates_grouped(
+        db, db.bow[q], st_r, top_l=5)[0].cpu() for q in (900, 1000, 1150)], 1) / 3
+    q_launches, q_busy = traced(lambda: mstage._loop_candidates_device(st_r, db, 1000, 10_000,
+                                                                       8).cpu())
+    rep["retrieval_kitti00"] = {"loop_candidates_ms": q_ms, "reloc_candidates_ms": r_ms,
+                                "host_syncs_per_query": q_syncs, "launches": q_launches,
+                                "busy_ms": q_busy}
+    check(q_syncs == [1, 1, 1], f"11d one host read per query: {q_syncs}")
+    print(f"phase 11d retrieval at KITTI-00 capacity (2,048 keyframe slots / 1,200 live, "
+          f"300,000 point slots / 150,000 live, 1,024 words): _loop_candidates_device "
+          f"{q_ms:.2f} ms per query (mean of 3, {q_launches} launches, busy {q_busy:.2f} ms, "
+          f"{q_syncs} host reads), detect_reloc_candidates_grouped {r_ms:.2f} ms on {smi}",
+          flush=True)
+    del st_r, db
+
+    # ---- 11e. BoW relocalization on the stereo world
+    seq_r, frame_of = td.reloc_frames(kworld, texture)
+    calls = []
+    inputs = td.loop_inputs(mstage, True, vocab=vocab)
+    hook = inputs["reloc"]
+    inputs["reloc"] = lambda *a: (lambda f: calls.append(list(hook(*a)(f))) or calls[-1])
+    tr, n_kf, _ = td.drive(ms, lm, trk, cfg_s, seq_r, code_len=64, stage="reloc",
+                           objects=inputs, device=dev)
+    ok = [bool(o) for _, _, o in tr.trajectory]
+    back = [i for i in range(8, len(seq_r)) if ok[i]]
+    est_x = -float(tr.trajectory[back[0]][1][0, 3]) if back else float("nan")
+    rep["reloc"] = {"ok": ok, "keyframes": n_kf, "candidates": calls,
+                    "recovered_frame": back[0] if back else -1,
+                    "x_err_m": abs(est_x - pw.gt_x(kworld, frame_of[back[0]])) if back else None}
+    check(all(ok[:6]) and not ok[6] and not ok[7] and back and any(calls)
+          and rep["reloc"]["x_err_m"] < 0.08 and tr.status == "OK", f"11e reloc: {rep['reloc']}")
+    print(f"phase 11e BoW relocalization (KITTI stereo, 6 frames, 2 blank, back at frame 2's "
+          f"viewpoint): lost at frames 6-7, recovered at entry {back[0]} with BoW candidates "
+          f"{calls}, x error {rep['reloc']['x_err_m']:.4f} m on {smi}", flush=True)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 11 took {rep['phase_s']:.0f} s", flush=True)
+    return rep
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measured numbers to this JSON file")
@@ -1559,6 +1922,8 @@ def main(argv=None):
     print(f"phase 9b-9c took {time.perf_counter() - t0:.0f} s", flush=True)
     # ---- 10. the object stage in the SLAM loop (f32 kernels), and 10c mono
     report["objects"], kernels_f32 = objects_phase(dev, smi, mem_bw)
+    # ---- 11. monocular initialization and loop closing (no kernel of the port)
+    report["loop"] = loop_phase(dev, smi)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "rows", "dtype")

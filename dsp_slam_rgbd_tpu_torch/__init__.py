@@ -10,11 +10,14 @@ Layout (ported so far):
   models/    DeepSDF decoder (nn.Module) + mesh extraction
   recon/     object shape+pose Gauss-Newton optimizer (the FLOPs core)
   frontend/  ORB extraction, matching, stereo
-  solvers/   pose GN, PnP, triangulation
-  mapping/   map state, covisibility, keyframe point stage, BA, map objects
+  solvers/   pose GN, PnP, triangulation, two-view initialization, Sim(3)
+  mapping/   map state, covisibility, keyframe point stage, BA, map objects,
+             the essential-graph pose graph
   tracking/  the synchronous tracker
+  loop/      BoW vocabulary and database, loop detection and correction
   system/    detections, label files, the object stage, the mono object
-             pipeline and the keyframe MappingStage (no loop closing yet)
+             pipeline, the keyframe MappingStage with loop closing, and
+             slam.py's monocular map insertion and relocalization candidates
   tools/     single-frame reconstruction CLI and the synthetic worlds
   entry.py   the flagship reconstruction step with example inputs
 

@@ -103,7 +103,9 @@ def radius_mask(xy_a, xy_b, radius):
     """(N, 2), (M, 2) -> (N, M) pairs within pixel radius; radius scalar or
     (N,) per query."""
     d2 = torch.sum((xy_a[:, None, :] - xy_b[None, :, :]) ** 2, dim=-1)
-    r = torch.as_tensor(radius, dtype=d2.dtype, device=d2.device)
+    if not torch.is_tensor(radius):
+        return d2 <= float(radius) ** 2   # no host-to-device copy
+    r = radius.to(d2.dtype)
     r2 = (r ** 2)[..., None] if r.ndim == 1 else r ** 2
     return d2 <= r2
 

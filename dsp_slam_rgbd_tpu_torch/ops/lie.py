@@ -172,14 +172,34 @@ def exp_sim3(x: torch.Tensor) -> torch.Tensor:
     return _rt_to_mat(e_s[..., None, None] * exp_so3(w), t)
 
 
+def det3(A: torch.Tensor) -> torch.Tensor:
+    """Determinant of (…, 3, 3) matrices as a1·(a2×a3): elementwise, so
+    `torch.func.vmap` of `jacfwd` through it is exact (through
+    `linalg.det` it is not)."""
+    return torch.sum(A[..., :, 0] * torch.linalg.cross(A[..., :, 1], A[..., :, 2], dim=-1), dim=-1)
+
+
+def _solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with A x = b for (…, 3, 3) A by Cramer's rule: elementwise, so no
+    error check (no host sync on the card), and `torch.func.vmap` of
+    `jacfwd` through it is exact (through `linalg.solve_ex` it is not)."""
+    a1, a2, a3 = A[..., :, 0], A[..., :, 1], A[..., :, 2]
+    c23 = torch.linalg.cross(a2, a3, dim=-1)
+    det = torch.sum(a1 * c23, dim=-1)
+    x = torch.stack([torch.sum(b * c23, dim=-1),
+                     torch.sum(a1 * torch.linalg.cross(b, a3, dim=-1), dim=-1),
+                     torch.sum(a1 * torch.linalg.cross(a2, b, dim=-1), dim=-1)], dim=-1)
+    return x / det[..., None]
+
+
 def log_sim3(T: torch.Tensor) -> torch.Tensor:
     """Sim(3) log map -> tangent [v, w, s] (inverse of exp_sim3)."""
     sR = T[..., :3, :3]
     t = T[..., :3, 3]
-    e_s = cbrt(torch.linalg.det(sR))
+    e_s = cbrt(det3(sR))
     s = torch.log(e_s)
     w = log_so3(sR / e_s[..., None, None])
-    v = torch.linalg.solve(_sim3_J(w, s, e_s), t[..., None])[..., 0]
+    v = _solve3(_sim3_J(w, s, e_s), t)
     return torch.cat([v, w, s[..., None]], dim=-1)
 
 
@@ -205,7 +225,7 @@ def inv_se3(T: torch.Tensor) -> torch.Tensor:
 def inv_sim3(T: torch.Tensor) -> torch.Tensor:
     """Inverse of a Sim(3) matrix (rotation block is s·R)."""
     sR = T[..., :3, :3]
-    s2 = cbrt(torch.linalg.det(sR)) ** 2
+    s2 = cbrt(det3(sR)) ** 2
     inv_sR = sR.transpose(-1, -2) / s2[..., None, None]
     return _rt_to_mat(inv_sR, -(inv_sR @ T[..., :3, 3, None])[..., 0])
 
@@ -218,7 +238,7 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 
 def sim3_scale(T: torch.Tensor) -> torch.Tensor:
     """Scale factor of a Sim(3) matrix: det(sR)^(1/3)."""
-    return cbrt(torch.linalg.det(T[..., :3, :3]))
+    return cbrt(det3(T[..., :3, :3]))
 
 
 def adjoint_se3(T: torch.Tensor) -> torch.Tensor:

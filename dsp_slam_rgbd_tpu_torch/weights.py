@@ -15,6 +15,11 @@ round trip is exact, bit 31 included.
 `ba_problem_from_numpy`/`ba_problem_to_numpy` and `ba_result_to_numpy` do
 the same for bundle-adjustment problems and results, so one problem can
 be solved by both packages, or on the card and on the CPU.
+
+`vocabulary_from_numpy` and `bow_database_from_numpy` take the JAX
+package's `Vocabulary` (centroid levels of uint32 words, bit-viewed as
+int32) and `BowDatabase`, so both packages score one vocabulary and one
+database.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import torch
 
 from dsp_slam_rgbd_tpu_torch import device as device_mod
 from dsp_slam_rgbd_tpu_torch.frontend.orb import Features
+from dsp_slam_rgbd_tpu_torch.loop.keyframe_db import BowDatabase
+from dsp_slam_rgbd_tpu_torch.loop.vocabulary import Vocabulary
 from dsp_slam_rgbd_tpu_torch.mapping.ba import BAProblem, BAResult
 from dsp_slam_rgbd_tpu_torch.mapping.map_state import MapState
 from dsp_slam_rgbd_tpu_torch.models.deepsdf import DecoderSpec, DeepSDFDecoder
@@ -102,3 +109,18 @@ def ba_problem_to_numpy(prob: BAProblem) -> dict:
 
 def ba_result_to_numpy(res: BAResult) -> dict:
     return {n: _to_numpy(n, getattr(res, n)) for n in BAResult._fields}
+
+
+def vocabulary_from_numpy(fields, device="cuda") -> Vocabulary:
+    """{"centroids": [(K^l, K, 8) uint32 numpy per level], "branching",
+    "depth"} of a JAX `Vocabulary` -> the port's on `device`."""
+    dev = device_mod.resolve(device)
+    return Vocabulary(tuple(_to_tensor(c, dev) for c in fields["centroids"]),
+                      int(fields["branching"]), int(fields["depth"]))
+
+
+def bow_database_from_numpy(fields, device="cuda") -> BowDatabase:
+    """{"bow": (K, W), "kf_valid": (K,)} numpy of a JAX `BowDatabase` -> the
+    port's on `device`."""
+    dev = device_mod.resolve(device)
+    return BowDatabase(*[_to_tensor(fields[n], dev) for n in BowDatabase._fields])

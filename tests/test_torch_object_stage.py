@@ -399,9 +399,9 @@ def test_mapping_stage_process_matches_jax(decoders):
     assert port.oobs_overwrites == jstage_obj["s"].oobs_overwrites
 
 
-@pytest.mark.parametrize("what", ["vocab", "recon_mesh"])
+@pytest.mark.parametrize("what", ["recon_mesh"])
 def test_mapping_stage_raises_for_parts_not_ported(what):
     cfg = port_config(make_cfg("stereo"))
     st = tms.empty(max_kf=4, max_feat=8, max_pts=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice D" if what == "vocab" else "slice F"):
+    with pytest.raises(NotImplementedError, match="slice F"):
         tstage.MappingStage(cfg, st, np.zeros(4, bool), **{what: object()})

@@ -600,11 +600,9 @@ def test_entry_points_default_to_the_card():
         ttr.Tracker(cfg, tms.empty(max_kf=4, max_feat=8, max_pts=16, device="cpu"))
 
 
-@pytest.mark.parametrize("what", ["mono", "pipelined"])
+@pytest.mark.parametrize("what", ["pipelined"])
 def test_tracker_raises_for_parts_not_ported(what):
-    j = make_cfg("mono" if what == "mono" else "stereo")
-    cfg = port_config(j)
-    if what == "pipelined":
-        cfg = dataclasses.replace(cfg, tracking=dataclasses.replace(cfg.tracking, pipelined=True))
-    with pytest.raises(NotImplementedError, match="slice C"):
+    cfg = port_config(make_cfg("stereo"))
+    cfg = dataclasses.replace(cfg, tracking=dataclasses.replace(cfg.tracking, pipelined=True))
+    with pytest.raises(NotImplementedError, match="slice E"):
         ttr.Tracker(cfg, tms.empty(max_kf=4, max_feat=8, max_pts=16, device="cpu"), device="cpu")

@@ -15,7 +15,17 @@ the driver inserts the keyframe with one of two stages:
     (`system/mapping_stage.py`), the full keyframe stage with detections:
     `objects` carries the stage's constructor and the detections of
     `dsp_slam_rgbd_tpu_torch/tools/object_world.py` (see
-    `object_inputs`).
+    `object_inputs`);
+  * "loop": `MappingStage(..., vocab=...).process` without detections:
+    the keyframe stage with the BoW database and loop closing (see
+    `loop_inputs`);
+  * "mono": the monocular sequence: the two-frame initialization goes in
+    through the package's `insert_mono_init` (the port's
+    `system/slam.py`, the JAX package's `SLAMSystem._insert_mono_init`),
+    every later keyframe through `MappingStage.process`;
+  * "reloc": "loop" with the tracker's relocalization candidates from the
+    BoW database (`reloc_candidates`, installed as
+    `Tracker.reloc_candidates_fn`).
 
 Run as a script, it drives the JAX package on the CPU at the KITTI-size
 world that `chip_smoke.py` phase 8 drives the port at (24 stereo frames,
@@ -72,13 +82,75 @@ def object_inputs(stage_mod, det_mod, world, truths, n_pts, n_rays, seed=0,
             "job": stage_mod.KFJob, "detections": make_detections, "on_keyframe": on_keyframe}
 
 
+def _jax_slam_method(name, tr, mapping, kf_valid):
+    """A bound `SLAMSystem` method of the JAX package over a driver's
+    tracker, mapping stage and keyframe mask (the methods read only these,
+    and `flush`, which has nothing to flush here)."""
+    import types
+
+    from dsp_slam_rgbd_tpu.system.slam import SLAMSystem
+
+    shim = types.SimpleNamespace(tracker=tr, mapping=mapping, _kf_valid_host=kf_valid,
+                                 vocab=mapping.vocab, state=tr.state, n_kf=0,
+                                 flush=lambda: None)
+    return types.MethodType(getattr(SLAMSystem, name), shim)
+
+
+def jax_insert_mono_init(tr, mapping, kf_valid):
+    """The JAX package's `SLAMSystem._insert_mono_init` -> keyframe count."""
+    _jax_slam_method("_insert_mono_init", tr, mapping, kf_valid)()
+    return 2
+
+
+def jax_reloc_candidates(tr, mapping, kf_valid):
+    """The JAX package's `SLAMSystem._reloc_candidates` as a frame -> slots
+    hook."""
+    return _jax_slam_method("_reloc_candidates", tr, mapping, kf_valid)
+
+
+def port_insert_mono_init(tr, mapping, kf_valid):
+    from dsp_slam_rgbd_tpu_torch.system import slam
+
+    return slam.insert_mono_init(mapping, tr, kf_valid)
+
+
+def port_reloc_candidates(tr, mapping, kf_valid):
+    from dsp_slam_rgbd_tpu_torch.system import slam
+
+    return lambda frame: slam.reloc_candidates(mapping, tr, frame)
+
+
+def loop_inputs(stage_mod, port: bool, on_keyframe=None, **stage_kwargs):
+    """The "loop", "mono" and "reloc" stages' inputs for `drive`:
+    `stage_mod` is either package's mapping_stage module, `port` says which
+    package (it picks `insert_mono_init`/`reloc_candidates`),
+    `stage_kwargs` its `vocab` (None: no BoW database)."""
+    return {"stage": lambda cfg, state, kv: stage_mod.MappingStage(cfg, state, kv, **stage_kwargs),
+            "job": stage_mod.KFJob, "detections": lambda i: (None, None),
+            "on_keyframe": on_keyframe,
+            "mono_init": port_insert_mono_init if port else jax_insert_mono_init,
+            "reloc": port_reloc_candidates if port else jax_reloc_candidates}
+
+
+def reloc_frames(world, texture, n_map=6, n_blank=2, back_frame=2, n_back=3):
+    """test_reloc_e2e.py's sequence: n_map stereo frames along the path,
+    n_blank black frames (tracking is lost), then n_back frames at frame
+    `back_frame`'s viewpoint -> ([(left, right, None)], frame index of each
+    entry or -1 for a blank)."""
+    seq = frames(world, texture, "stereo", n_map, u8=True)
+    blank = np.zeros((world.h, world.w), np.uint8)
+    seq += [(blank, blank, None)] * n_blank + [seq[back_frame]] * n_back
+    return seq, list(range(n_map)) + [-1] * n_blank + [back_frame] * n_back
+
+
 def drive(ms, lm, tracker_mod, cfg, seq, code_len, stage="bootstrap", objects=None,
           **device):
-    """Track `seq`, inserting keyframes with `stage` ("bootstrap", "full"
-    or "objects", the last with `objects` from `object_inputs`) ->
-    (tracker, keyframe count, culled slots in order).  `ms`, `lm`,
-    `tracker_mod`: either package's map_state, local_mapping and tracker
-    modules; `device` goes to the port's entry points."""
+    """Track `seq`, inserting keyframes with `stage` ("bootstrap", "full",
+    "objects" with `objects` from `object_inputs`, or "loop", "mono",
+    "reloc" with `objects` from `loop_inputs`) -> (tracker, keyframe count,
+    culled slots in order); the mapping stage, if any, is `tr.mapping`.
+    `ms`, `lm`, `tracker_mod`: either package's map_state, local_mapping
+    and tracker modules; `device` goes to the port's entry points."""
     m = cfg.map
     state = ms.empty(max_kf=m.max_kf, max_feat=m.max_feat, max_pts=m.max_pts,
                      max_obj=m.max_obj, code_len=code_len, max_oobs=m.max_oobs,
@@ -89,16 +161,25 @@ def drive(ms, lm, tracker_mod, cfg, seq, code_len, stage="bootstrap", objects=No
     culled = []
     th_depth_m = cfg.tracking.th_depth * cfg.cam.bf / cfg.cam.fx
     stereo = cfg.sensor in ("stereo", "rgbd")
-    mapping = objects["stage"](cfg, tr.state, kf_valid) if stage == "objects" else None
+    staged = stage in ("objects", "loop", "mono", "reloc")
+    mapping = objects["stage"](cfg, tr.state, kf_valid) if staged else None
+    tr.mapping = mapping
+    if stage == "reloc":
+        tr.reloc_candidates_fn = objects["reloc"](tr, mapping, kf_valid)
     for i, (left, right, depth) in enumerate(seq):
         out = tr.track(left, img_right=right, depth_map=depth, timestamp=i * 0.1)[-1]
         if not out["new_kf"]:
+            continue
+        if stage == "mono" and n_kf == 0:
+            # the initialization's two keyframes (`CreateInitialMapMonocular`)
+            mapping.state = tr.state
+            n_kf = objects["mono_init"](tr, mapping, kf_valid)
             continue
         slot = int(ms.alloc_slots(kf_valid, 1)[0])
         if slot < 0:
             continue
         kf_valid[slot] = True
-        if stage == "objects":
+        if staged:
             dets, truth_idx = objects["detections"](i)
             job = objects["job"](frame=out["frame"], detections=dets, kf_slot=slot, kid=n_kf,
                                  frame_id=out["fid"], timestamp=out["timestamp"])
