@@ -11,8 +11,9 @@ kernel at the main path's shapes, then drives the per-frame tracking path
 and the keyframe stage at KITTI size (phases 8 and 9a), bundle
 adjustment at KITTI-00 scale (phases 9b and 9c), and the keyframe
 `MappingStage` with its object stage, where the f32 kernels run inside
-the SLAM loop (phase 10), the mono object pipeline (10c), and monocular
-initialization and loop closing (phase 11).  Exits non-zero, with no
+the SLAM loop (phase 10), the mono object pipeline (10c), monocular
+initialization and loop closing (phase 11), and the system loop and its
+command line (phase 12).  Exits non-zero, with no
 result line, if there is no card or any phase fails.  Prints, before the
 last line, the card's name and power limit and one JSON line of kernel
 numbers; the last line is {"ok": true, "device": {...}}.  With --report,
@@ -133,7 +134,7 @@ tests/tracking_driver.py's "mono", "loop" and "reloc" stages:
     (phase 8's KITTI-size wall on a floor 1.65 m below the camera, 0.54 m
     a frame: tests/test_mono_e2e.py's parallax ratio), phase 8's
     configuration with OrbConfig()'s 2,000 features: the tracker's H/F
-    initialization, `system/slam.py::insert_mono_init`, then
+    initialization, `SLAMSystem._insert_mono_init` (through the driver), then
     `MappingStage.process` at every keyframe: initialized, >= 60% of frames
     OK, >= 2 keyframes, Sim(3)-aligned ATE under 8% of the path (the JAX
     test's bars); ms of the initialization step and of its RANSAC alone,
@@ -160,15 +161,74 @@ tests/tracking_driver.py's "mono", "loop" and "reloc" stages:
     `detect_reloc_candidates_grouped` (mean of 3 queries);
   * 11e: tests/test_reloc_e2e.py's sequence on phase 8's stereo world (6
     frames, 2 blank frames, back at frame 2's viewpoint) with the
-    tracker's candidates from `system/slam.py::reloc_candidates`: LOST in
+    tracker's candidates from `SLAMSystem._reloc_candidates`: LOST in
     the blackout, recovered with BoW candidates within 0.08 m.
+
+Phase 12 drives the system loop (`system/slam.py::SLAMSystem`: the mapping
+worker on its own CUDA stream, adoption after `async_kf_frames`, the
+`FramePrefetcher`) through the command line,
+`dsp_slam_rgbd_tpu_torch/tools/run_slam.py::main`, called in-process (the
+smoke wraps `SLAMSystem.track_frame` and `MappingStage.process` to time
+frames and jobs; `system_overrides` sets `async_kf_frames` or `pipelined`):
+  * 12a: phase 10's world written as a KITTI directory
+    (`tools/sequence_dirs.py::write_kitti_objects`: 24 frames of 1241x376
+    uint8 pairs through the port's PNG codec, calib.txt with KITTI 00-02's
+    P2 and Tr, a label npz a frame with the 8 objects, gt.txt, a yaml of
+    phase 10's tracking configuration: 2,000 ORB features, ThDepth 35, 5
+    frames at most between keyframes), run with the fixture decoder,
+    `--labels`, `--bootstrap-vocab 24 --vocab-depth 4` and `--gt`.  The
+    map is the command line's: 2,048 feature slots a keyframe for the
+    yaml's 2,000 features (`run_slam.feature_slots`, as phase 10), and
+    `MapConfig()`'s other capacities (local window 10 keyframes where
+    phase 10 has 8; 128 keyframes, 16,384 points, 16 objects and 512
+    object observations where it has 48, 32,768, 8 and 256, none of them
+    reached).  It fails unless every frame has a row in
+    CameraTrajectory.txt (12 floats), the ATE (rigid alignment) is within
+    CLI_BAND and the largest translation error within CLI_ERR_BAND, 1.5x
+    the JAX package's command line's own over the same directory and
+    configuration on the CPU (`tests/tracking_driver.py cli`), each of the
+    7 static objects has its own MapObjects.txt entry within 0.3 m of its
+    truth, summary.json shows no keyframe dropped and no loop closed, and
+    both f32 kernels launched.  It prints fps, tracking ms p50/p90/p99,
+    the median ms of tracking-only frames with the worker idle and with a
+    keyframe job in flight and of keyframe frames, the ms the main thread
+    blocked in `_adopt` and `_prewait_mapping`, and one frame traced with
+    a job in flight: busy ms, its idle share of the traced wall and of the
+    untraced in-flight frames' median wall, each stream's kernels and busy
+    ms (marker kernels traced before the first frame tell the tracker's
+    and the worker's streams apart) and the ms in which the tracker's and
+    the worker's kernels ran at once.  The frames traced are those that
+    start while the worker is inside a job, from its second asynchronous
+    job on (the first runs on a thread just started), until one shows the
+    worker's kernels: a frame whose trace holds none is printed as a miss,
+    and the phase fails if every such frame misses.  Then the same run at `async_kf_frames=0` (every keyframe stage
+    inline), held to the same checks, and its fps beside the first;
+  * 12b: phase 8c's 12 RGB-D frames as rgb/ + 16-bit depth/ PNGs, run
+    with the synchronous and with the pipelined tracker (the stats read
+    through a pinned copy and its event, frames finalized one call late),
+    and phase 11a's 14 KITTI_FLOOR frames as an image directory
+    (`SLAMSystem._insert_mono_init` inside the system), each with its
+    phase's tracking configuration and the command line's map, held to
+    that phase's bars: RGB-D >= 90% of frames, >= 2 keyframes, largest x
+    error under RGBD_BAND; mono >= 60% of frames, >= 2 keyframes,
+    Sim(3)-aligned ATE under 8% of the path;
+  * 12c: tests/test_long_run.py's circuit (`tools/loop_world.py`, 117
+    224x160 stereo frames, its vocabulary) through `SLAMSystem(vocab=...)`:
+    >= 1 loop closure whose point remap is adopted (`_adopt_merge`), > 90%
+    of frames OK, ATE < 0.5 m, the lap gap and every lap-2 frame's distance
+    to its lap-1 twin < 0.5 m (that test's bars), and no job writing a
+    tensor of the state it started from (`Tensor._version`); it prints
+    `correct_loop`'s ms inside the worker and the frame ms at the
+    closure's adoption.
 """
 import argparse
+import contextlib
 import functools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1351,7 +1411,7 @@ def loop_phase(dev, smi):
     t_phase = time.perf_counter()
     rep = {"card": smi}
 
-    # ---- 11a. mono: H/F initialization, insert_mono_init, the keyframe stage
+    # ---- 11a. mono: H/F initialization, _insert_mono_init, the keyframe stage
     world = pw.KITTI_FLOOR
     cfg_m = tracking_config(world, "mono")
     n = 14
@@ -1598,6 +1658,555 @@ def loop_phase(dev, smi):
           f"{calls}, x error {rep['reloc']['x_err_m']:.4f} m on {smi}", flush=True)
     rep["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 11 took {rep['phase_s']:.0f} s", flush=True)
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the system loop and the command line
+# ---------------------------------------------------------------------------
+# the JAX package's own command line (tools/run_slam.py) on the CPU over phase
+# 12a's directory with 12a's arguments and feature slots (`JAX_PLATFORMS=cpu python
+# tests/tracking_driver.py cli DIR`): ATE after a rigid alignment, largest
+# translation error (frame 4), the 7 static objects' center errors in MapObjects.txt
+JAX_CLI = {"ate_m": 0.076990507543087, "max_err_m": 0.2660200596, "keyframes": 8,
+           "static_center_err_m": [0.0199, 0.0247, 0.0234, 0.0202, 0.0244, 0.0198, 0.0302]}
+CLI_BAND, CLI_ERR_BAND = 1.5 * JAX_CLI["ate_m"], 1.5 * JAX_CLI["max_err_m"]
+# phase 11a's bars on the mono run (tests/test_mono_e2e.py): ok share, ATE / path
+MONO_OK, MONO_ATE_SHARE = 0.6, 0.08
+
+
+def _union(intervals):
+    """Merged (start, end) intervals."""
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _length(iv):
+    return sum(e - s for s, e in iv)
+
+
+def _intersection(a, b):
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def _kernels(trace_path):
+    with open(trace_path) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+
+
+def mark_streams(dev, worker_stream, path):
+    """Trace marker kernels into `path` for `stream_names`: one on the
+    current (the tracker's) stream, two on `worker_stream`, after the
+    tracer has settled (it drops the first kernels of a trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(8):
+            torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+        torch.cuda._sleep(100)
+        with torch.cuda.stream(worker_stream):
+            torch.cuda._sleep(100)
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    p.export_chrome_trace(path)
+
+
+def stream_names(marker_trace):
+    """{stream id: name} from a short trace of marker kernels only
+    (`torch.cuda._sleep`, named "spin"): one on the tracker's stream, two
+    on the worker's.  Kept apart from the frame's trace, where the tracer
+    may drop a marker among ~50,000 kernels."""
+    spins = {}
+    for e in _kernels(marker_trace):
+        if "spin" in e.get("name", ""):
+            st = e["args"].get("stream")
+            spins[st] = spins.get(st, 0) + 1
+    return {st: {1: "tracker stream", 2: "worker stream"}[n]
+            for st, n in spins.items() if n in (1, 2)}
+
+
+def stream_overlap(trace_path, wall_ms, names):
+    """From a Chrome trace of one frame: each stream's kernels (count, busy
+    ms; streams named by `names`, others, the prefetcher's, by their id),
+    the ms in which the tracker's and the worker's streams both ran a
+    kernel, and the idle share of the frame's wall."""
+    by_stream = {}
+    for e in _kernels(trace_path):
+        t0 = float(e["ts"])
+        by_stream.setdefault(e["args"].get("stream"), []).append(
+            (t0, t0 + float(e.get("dur", 0.0))))
+    iv = {names.get(st, f"stream {st}"): (len(v), _union(v)) for st, v in by_stream.items()}
+    busy = _length(_union([x for v in by_stream.values() for x in v])) / 1e3
+    return {"streams": {k: {"kernels": n, "busy_ms": _length(u) / 1e3}
+                        for k, (n, u) in iv.items()},
+            "overlap_ms": _intersection(iv.get("tracker stream", (0, []))[1],
+                                        iv.get("worker stream", (0, []))[1]) / 1e3,
+            "busy_ms": busy, "wall_ms": wall_ms,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms > 0 else None}
+
+
+def _center_errors(truths, map_objects):
+    """Each truth's nearest MapObjects entry: [(truth index, slot id, m)]."""
+    ids, poses, _ = map_objects
+    out = []
+    for k, t in enumerate(truths):
+        d = np.linalg.norm(poses[:, :3, 3] - t.center, axis=1) if len(ids) else np.array([np.inf])
+        out.append((k, int(ids[int(np.argmin(d))]) if len(ids) else -1, float(d.min())))
+    return out
+
+
+@contextlib.contextmanager
+def system_overrides(**fields):
+    """`SLAMSystem`s built inside the block (by the command line) take their
+    configuration with `fields` replaced: a `SystemConfig` field, or
+    `pipelined`, which goes into its `TrackingConfig`."""
+    from unittest import mock
+
+    from dsp_slam_rgbd_tpu_torch import config
+    from dsp_slam_rgbd_tpu_torch.system import slam
+
+    init = slam.SLAMSystem.__init__
+
+    def overridden(self, cfg, *a, **k):
+        if "pipelined" in fields:
+            cfg = config.replace(cfg, tracking=config.replace(cfg.tracking,
+                                                              pipelined=fields["pipelined"]))
+        cfg = config.replace(cfg, **{f: v for f, v in fields.items() if f != "pipelined"})
+        init(self, cfg, *a, **k)
+
+    with mock.patch.object(slam.SLAMSystem, "__init__", overridden):
+        yield
+
+
+def cli_objects_run(dev, paths, out, vocab, async_kf_frames, trace_path=None):
+    """One run of the command line over 12a's directory with `async_kf_frames`.
+    Wraps `SLAMSystem.track_frame` (each frame's host span and card events,
+    whether a keyframe job was in flight) and `MappingStage.process` (each
+    job's host span and events on the worker's stream, which is current
+    there), and, given `trace_path`, names the streams by marker kernels
+    before the first frame and traces the frames that start while the
+    worker is inside its second or a later asynchronous job, until one
+    holds the worker's kernels -> (run_slam.main's result, the record:
+    "traced" that frame's streams, "misses" the frames traced before it)."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsp_slam_rgbd_tpu_torch.system import mapping_stage, slam
+    from dsp_slam_rgbd_tpu_torch.tools import run_slam
+
+    rec = {"spans": [], "events": [], "inflight": [], "jobs": [], "job_events": [],
+           "in_job": 0, "names": None, "traced": {}, "misses": []}
+    track_frame, process = slam.SLAMSystem.track_frame, mapping_stage.MappingStage.process
+
+    def timed_process(self, job):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        rec["in_job"] += 1
+        t = time.perf_counter()
+        ev[0].record()
+        try:
+            res = process(self, job)
+        finally:
+            rec["in_job"] -= 1
+        ev[1].record()
+        rec["jobs"].append((t, time.perf_counter()))
+        rec["job_events"].append(ev)
+        return res
+
+    def timed_track_frame(self, frame, detections=None):
+        busy = bool(self._pending) and not self._pending[-1][2].is_set() \
+            and self._pending[-1][3] > self.tracker.frame_id + 1
+        rec["inflight"].append(busy)
+        if trace_path and rec["names"] is None and self._map_stream is not None:
+            mark_streams(dev, self._map_stream, trace_path + ".markers")
+            rec["names"] = stream_names(trace_path + ".markers")
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        # the worker is inside a job, and has finished one asynchronous job
+        # before it (the two bootstrap jobs run inline, in their frames)
+        if trace_path and busy and not rec["traced"] and self._worker is not None \
+                and rec["in_job"] and len(rec["jobs"]) >= 3:
+            # the card's kernels only: recording the host's ops slows the frame
+            with profile(activities=[ProfilerActivity.CUDA]) as p:
+                t = time.perf_counter()
+                r = track_frame(self, frame, detections)
+                t1 = time.perf_counter()
+            p.export_chrome_trace(trace_path)
+            got = dict(stream_overlap(trace_path, (t1 - t) * 1e3, rec["names"]),
+                       frame=len(rec["spans"]))
+            if "worker stream" in got["streams"]:
+                rec["traced"] = got
+            else:
+                rec["misses"].append(got)
+        else:
+            t = time.perf_counter()
+            r = track_frame(self, frame, detections)
+            t1 = time.perf_counter()
+        ev[1].record()
+        rec["spans"].append((t, t1))
+        rec["events"].append(ev)
+        return r
+
+    argv = [paths["seq"], out, "--yaml", paths["yaml"], "--labels", paths["labels"],
+            "--deepsdf", FIXTURE, "--vocab", vocab, "--bootstrap-vocab", "24",
+            "--vocab-depth", "4", "--gt", paths["gt"]]
+    with system_overrides(async_kf_frames=async_kf_frames), \
+            mock.patch.object(slam.SLAMSystem, "track_frame", timed_track_frame), \
+            mock.patch.object(mapping_stage.MappingStage, "process", timed_process):
+        res = run_slam.main(argv)
+    torch.cuda.synchronize()
+    return res, rec
+
+
+def cli_objects_check(paths, out, res):
+    """12a's checks on one run's files -> the numbers they read."""
+    from dsp_slam_rgbd_tpu_torch.solvers import sim3
+    from dsp_slam_rgbd_tpu_torch.system import io as io_mod
+    from dsp_slam_rgbd_tpu_torch.tools import object_world as ow
+    from dsp_slam_rgbd_tpu_torch.tools import sequence_dirs as sd
+
+    summ = res["summary"]
+    rows = np.loadtxt(os.path.join(out, "CameraTrajectory.txt"), ndmin=2)
+    gt = np.loadtxt(paths["gt"], ndmin=2)[:, [3, 7, 11]]
+    m = min(len(rows), len(gt))
+    ate = float(sim3.align_trajectories(torch.tensor(rows[:m, [3, 7, 11]], dtype=torch.float32),
+                                        torch.tensor(gt[:m], dtype=torch.float32),
+                                        fix_scale=True)[1])
+    max_err = float(np.abs(rows[:m, [3, 7, 11]] - gt[:m]).max())
+    objs = io_mod.load_map_objects(os.path.join(out, "MapObjects.txt"))
+    statics = _center_errors(ow.kitti_objects()[:7], objs)
+    n = sd.KITTI_OBJECTS_FRAMES
+    check(rows.shape == (n, 12), f"12a every frame in CameraTrajectory.txt: {rows.shape}")
+    check(ate <= CLI_BAND, f"12a ATE {ate} within 1.5x the JAX command line's {JAX_CLI['ate_m']}")
+    check(max_err <= CLI_ERR_BAND, f"12a largest translation error {max_err} within 1.5x the "
+          f"JAX command line's {JAX_CLI['max_err_m']}")
+    check(all(e < 0.3 for _, _, e in statics) and len({s for _, s, _ in statics}) == 7,
+          f"12a the 7 static objects in MapObjects.txt within 0.3 m: {statics}")
+    check(summ["kf_slots_exhausted"] == 0 and summ["loop_closures"] == 0,
+          f"12a no keyframe dropped, no loop closed: {summ}")
+    return {"ate_m": ate, "max_err_m": max_err, "rows": list(rows.shape),
+            "map_objects": len(objs[0]), "static_center_err_m": statics}
+
+
+def cli_objects_phase(dev, smi, tmp):
+    """12a: the port's command line in-process on phase 10's world written
+    as a KITTI directory, with the asynchronous keyframe stage and again
+    with it inline (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
+    from dsp_slam_rgbd_tpu_torch.tools import sequence_dirs as sd
+
+    t0 = time.perf_counter()
+    paths = sd.write_kitti_objects(os.path.join(tmp, "kitti"))
+    write_s = time.perf_counter() - t0
+    vocab = os.path.join(tmp, "vocab12a.npz")
+    with profile(activities=[ProfilerActivity.CUDA]):   # the tracer's first start is slow
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    mlp_sdf.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, rec = cli_objects_run(dev, paths, os.path.join(tmp, "out12a"), vocab, 3,
+                               trace_path=os.path.join(tmp, "frame_trace.json"))
+    run_s = time.perf_counter() - t0
+    launches = dict(mlp_sdf.LAUNCHES)
+    check(launches["mlp_sdf_value"] > 0 and launches["mlp_sdf_jacobian"] > 0,
+          f"12a both f32 kernels launched from the command line's run: {launches}")
+    got = cli_objects_check(paths, os.path.join(tmp, "out12a"), res)
+    summ, traced, misses = res["summary"], rec["traced"], rec["misses"]
+    for m in misses:
+        print(f"phase 12a traced frame {m['frame']} (the worker inside a job as it began) holds "
+              f"no kernel of the worker's stream: traced wall {m['wall_ms']:.1f} ms, " + "; ".join(
+                  f"{k}: {v['kernels']} kernels, {v['busy_ms']:.1f} ms busy"
+                  for k, v in m["streams"].items()), flush=True)
+    check({"tracker stream", "worker stream"} <= set(traced.get("streams", {})),
+          f"12a a frame traced with a keyframe job in flight, both streams found "
+          f"(streams {rec['names']}): {traced}; misses {misses}")
+    traced_frames = [traced["frame"]] + [m["frame"] for m in misses]
+    ms_ = np.asarray(res["track_ms"])
+    kf = np.zeros(len(ms_), bool)
+    kf[res["kf_frames"]] = True
+    busy = np.asarray(rec["inflight"], bool)
+    # frames per second without the first frame (its keyframe stage, 7 new
+    # objects, runs inline in both modes) and the traced ones (the tracer's cost)
+    steady = np.delete(ms_, [0] + traced_frames)
+    # how much of the worker's keyframe stages ran while a frame was tracked
+    # (the first two jobs, the bootstrap keyframes, run inline in their frame),
+    # on the host clock and on the card's (each job's first to last work)
+    jobs = _union(rec["jobs"][2:])
+    job_s, overlap_s = _length(jobs), _intersection(jobs, _union(rec["spans"]))
+    ref = rec["events"][0][0]
+    dev_jobs = _union([(ref.elapsed_time(a), ref.elapsed_time(b))
+                       for a, b in rec["job_events"][2:]])
+    dev_frames = _union([(ref.elapsed_time(a), ref.elapsed_time(b)) for a, b in rec["events"]])
+    dev_job_ms, dev_overlap_ms = _length(dev_jobs), _intersection(dev_jobs, dev_frames)
+    # the idle share of a frame with a job in flight, from the traced frame's
+    # busy time over the untraced such frames' median wall
+    untraced_busy = np.delete(np.arange(len(ms_)), traced_frames)
+    inflight_wall = _median(ms_[untraced_busy][~kf[untraced_busy] & busy[untraced_busy]])
+    rep = {"card": smi, "write_s": write_s, "run_s": run_s, "summary": summ, **got,
+           "band_m": CLI_BAND, "jax_cli_cpu": JAX_CLI, "launches": launches,
+           "track_ms": ms_.tolist(), "kf_frames": res["kf_frames"], "job_in_flight": busy.tolist(),
+           "blocked_ms": res["blocked_ms"], "traced_frame": traced, "trace_misses": misses,
+           "ms_tracking_idle_worker": _median(ms_[~kf & ~busy]),
+           "ms_tracking_job_in_flight": _median(ms_[~kf & busy]),
+           "ms_keyframe_frames": _median(ms_[kf]), "worker_jobs_s": job_s,
+           "worker_overlapping_tracking_s": overlap_s, "worker_stream_ms": dev_job_ms,
+           "worker_stream_in_frames_ms": dev_overlap_ms,
+           "fps_steady": float(steady.size / max(steady.sum() / 1e3, 1e-9)),
+           "idle_share_in_flight_untraced": 1.0 - traced["busy_ms"] / inflight_wall}
+    print(f"phase 12a command line (phase 10's world and tracking configuration as a KITTI "
+          f"directory: {summ['frames']} 1241x376 stereo frames, 2,000 ORB features, ThDepth 35, "
+          f"5 frames at most between keyframes, 8 objects' label files, fixture decoder, "
+          f"10^4-word vocabulary bootstrapped from 24 frames, async_kf_frames 3, "
+          f"FramePrefetcher): {summ['fps']} fps, track ms p50/p90/p99 {summ['track_ms_p50']}/"
+          f"{summ['track_ms_p90']}/{summ['track_ms_p99']}; {rep['fps_steady']:.3f} fps without "
+          f"the first frame (the bootstrap keyframe stage with 7 new objects runs inline) and the "
+          f"traced ones; median ms: tracking with the worker idle "
+          f"{rep['ms_tracking_idle_worker']:.1f} ({int((~kf & ~busy).sum())} frames), tracking "
+          f"with a job in flight {rep['ms_tracking_job_in_flight']:.1f} "
+          f"({int((~kf & busy).sum())}), keyframe frames {rep['ms_keyframe_frames']:.1f} "
+          f"({int(kf.sum())}); the worker's jobs {job_s:.2f} s on the host, {overlap_s:.2f} s of "
+          f"them while a frame was tracked; on the card the worker's jobs span "
+          f"{dev_job_ms:.1f} ms, {dev_overlap_ms:.1f} ms of them inside the tracker's frames; "
+          f"blocked in _adopt {res['blocked_ms']['adopt']:.1f} ms, in _prewait_mapping "
+          f"{res['blocked_ms']['prewait']:.1f} ms; {summ['n_kf']} keyframes, {summ['n_points']} "
+          f"points, ATE {got['ate_m']:.6f} m (band {CLI_BAND:.6f}, JAX CPU "
+          f"{JAX_CLI['ate_m']:.6f}), largest error {got['max_err_m']:.6f} m (band "
+          f"{CLI_ERR_BAND:.6f}), {got['map_objects']} map objects, static centers "
+          f"{min(e for _, _, e in got['static_center_err_m']):.4f}-"
+          f"{max(e for _, _, e in got['static_center_err_m']):.4f} m; decoder launches "
+          f"{launches}; write {write_s:.1f} s, run {run_s:.1f} s on {smi}", flush=True)
+    print(f"phase 12a traced frame {traced['frame']} (a keyframe job in flight; streams named "
+          f"by marker kernels traced before the first frame; {len(misses)} frames traced before "
+          f"it held none of the worker's kernels): traced wall {traced['wall_ms']:.1f} "
+          f"ms, busy {traced['busy_ms']:.1f} ms, idle share of the traced wall "
+          f"{traced['idle_share']:.3f}, of the untraced in-flight frames' median wall "
+          f"({inflight_wall:.1f} ms) {rep['idle_share_in_flight_untraced']:.3f}; " + "; ".join(
+              f"{k}: {v['kernels']} kernels, {v['busy_ms']:.1f} ms busy"
+              for k, v in traced["streams"].items())
+          + f"; the tracker's and the worker's kernels ran at once for "
+          f"{traced['overlap_ms']:.2f} ms on {smi}", flush=True)
+    # the same run with every keyframe stage inline in its frame
+    t0 = time.perf_counter()
+    res0, _ = cli_objects_run(dev, paths, os.path.join(tmp, "out12a_sync"), vocab, 0)
+    got0 = cli_objects_check(paths, os.path.join(tmp, "out12a_sync"), res0)
+    ms0 = np.asarray(res0["track_ms"])
+    rep["sync"] = {"summary": res0["summary"], **got0, "track_ms": ms0.tolist(),
+                   "fps_steady": float((ms0.size - 1) / max(ms0[1:].sum() / 1e3, 1e-9)),
+                   "run_s": time.perf_counter() - t0}
+    s0 = res0["summary"]
+    print(f"phase 12a again at async_kf_frames 0 (every keyframe stage inline): {s0['fps']} fps "
+          f"(async_kf_frames 3: {summ['fps']}), {rep['sync']['fps_steady']:.3f} fps without the "
+          f"first frame (async 3: {rep['fps_steady']:.3f}), track ms p50/p90/p99 "
+          f"{s0['track_ms_p50']}/{s0['track_ms_p90']}/{s0['track_ms_p99']}; {s0['n_kf']} "
+          f"keyframes, ATE {got0['ate_m']:.6f} m, largest error {got0['max_err_m']:.6f} m, static "
+          f"centers {min(e for _, _, e in got0['static_center_err_m']):.4f}-"
+          f"{max(e for _, _, e in got0['static_center_err_m']):.4f} m; run "
+          f"{rep['sync']['run_s']:.1f} s on {smi}", flush=True)
+    return rep
+
+
+def _layout_write(tmp, name, world, sensor, n):
+    """Write `world` in `sensor`'s layout with a yaml of phase 8's tracking
+    configuration (2,000 features, ThDepth 35, 5 frames at most between
+    keyframes) -> (sequence dir, yaml)."""
+    from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw
+    from dsp_slam_rgbd_tpu_torch.tools import sequence_dirs as sd
+
+    root = os.path.join(tmp, name)
+    (sd.write_rgbd if sensor == "rgbd" else sd.write_mono)(root, world, pw.make_texture(world), n)
+    yaml = os.path.join(tmp, f"{name}.yaml")
+    sd.write_yaml(yaml, world, fps=5.0)
+    return root, yaml
+
+
+def _layout_run(tmp, root, yaml, out, sensor, **overrides):
+    """The command line over a layout written by `_layout_write` -> (result,
+    TUM camera centers, frame index of each row)."""
+    from dsp_slam_rgbd_tpu_torch.tools import run_slam
+
+    with system_overrides(**overrides):
+        res = run_slam.main([root, os.path.join(tmp, out), "--sensor", sensor, "--yaml", yaml])
+    rows = np.loadtxt(os.path.join(tmp, out, "CameraTrajectory_TUM.txt"), ndmin=2)
+    return res, rows[:, 1:4], np.round(rows[:, 0] * 5.0).astype(int)
+
+
+def cli_layouts_phase(dev, smi, tmp):
+    """12b: the RGB-D and image-directory layouts through the command line,
+    held to phases 8c's and 11a's bands; the RGB-D run again with the
+    pipelined tracker."""
+    from unittest import mock
+
+    from dsp_slam_rgbd_tpu_torch.solvers import sim3
+    from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw
+    from dsp_slam_rgbd_tpu_torch.tracking import tracker as trk
+
+    rep = {"card": smi}
+    root, yaml = _layout_write(tmp, "rgbd", pw.KITTI, "rgbd", 12)
+    copies, finals = [], []
+    copy, finalize = trk._copy_to_host_async, trk.Tracker._finalize_one
+
+    def counted_copy(stats):
+        out = copy(stats)
+        copies.append(out[1] is not None)   # a pinned copy with its event
+        return out
+
+    def counted_finalize(self, infl, speculative):
+        outs = finalize(self, infl, speculative)
+        finals.append(len(outs))
+        return outs
+
+    for mode in ("sync", "pipelined"):
+        t0 = time.perf_counter()
+        with mock.patch.object(trk, "_copy_to_host_async", counted_copy), \
+                mock.patch.object(trk.Tracker, "_finalize_one", counted_finalize):
+            res, cen, fi = _layout_run(tmp, root, yaml, f"out_rgbd_{mode}", "rgbd",
+                                       pipelined=mode == "pipelined")
+        err = np.abs(cen[:, 0] - np.array([pw.gt_x(pw.KITTI, f) for f in fi]))
+        s = res["summary"]
+        rep[f"rgbd_{mode}"] = r = {"summary": s, "rows": len(fi), "max_x_err_m": float(err.max()),
+                                   "band_m": RGBD_BAND, "pinned_copies": len(copies),
+                                   "finalized": len(finals), "s": time.perf_counter() - t0}
+        check(len(fi) >= 0.9 * 12 and s["n_kf"] >= 2 and np.isfinite(cen).all()
+              and err.max() < RGBD_BAND, f"12b RGB-D {mode}: {r}")
+        if mode == "pipelined":
+            check(len(finals) >= 6 and len(copies) >= 6 and all(copies),
+                  f"12b the pipelined tracker finalized frames read through pinned copies: {r}")
+        print(f"phase 12b RGB-D {mode} (rgb/ + 16-bit depth/ PNGs, 12 KITTI-size frames, phase "
+              f"8c's tracking configuration): {len(fi)} rows, {s['n_kf']} keyframes, largest x "
+              f"error {err.max():.6f} m (band {RGBD_BAND}), {s['fps']} fps, track ms p50 "
+              f"{s['track_ms_p50']}; {len(finals)} frames finalized one frame late, "
+              f"{len(copies)} stats copies to pinned memory on {smi}", flush=True)
+    t0 = time.perf_counter()
+    world = pw.KITTI_FLOOR
+    root, yaml = _layout_write(tmp, "mono", world, "mono", 14)
+    res, cen, fi = _layout_run(tmp, root, yaml, "out_mono", "mono")
+    s = res["summary"]
+    gt = torch.tensor([[pw.gt_x(world, f), 0.0, 0.0] for f in fi], dtype=torch.float32)
+    ate = float(sim3.align_trajectories(torch.tensor(cen, dtype=torch.float32), gt)[1]) \
+        if len(fi) >= 3 else float("inf")
+    path = float(gt[-1, 0] - gt[0, 0]) if len(fi) else 0.0
+    rep["mono"] = {"summary": s, "rows": len(fi), "ate_m": ate, "path_m": path,
+                   "s": time.perf_counter() - t0}
+    check(len(fi) >= MONO_OK * 14 and s["n_kf"] >= 2 and ate < MONO_ATE_SHARE * path,
+          f"12b mono: {rep['mono']}")
+    print(f"phase 12b mono (an image directory of 14 KITTI_FLOOR frames, phase 11a's "
+          f"tracking configuration, SLAMSystem._insert_mono_init): {len(fi)} rows from frame "
+          f"{fi[0]}, {s['n_kf']} keyframes, Sim(3)-aligned ATE {ate:.4f} m of a {path:.2f} m "
+          f"path (bar {MONO_ATE_SHARE:.0%}), {s['fps']} fps on {smi}", flush=True)
+    return rep
+
+
+def system_loop_phase(dev, smi):
+    """12c: tests/test_long_run.py's circuit through `SLAMSystem(vocab=...)`
+    on the card: a closure adopted with its point remap."""
+    from dsp_slam_rgbd_tpu_torch.system import mapping_stage as mstage
+    from dsp_slam_rgbd_tpu_torch.system import slam
+    from dsp_slam_rgbd_tpu_torch.tools import loop_world as lw
+
+    t_phase = time.perf_counter()
+    xys, frames = lw.frames()
+    cfg = lw.make_cfg()
+    t0 = time.perf_counter()
+    vocab = lw.train_vocab(frames, cfg, device=dev)
+    vocab_s = time.perf_counter() - t0
+    system = slam.SLAMSystem(cfg, vocab=vocab, device=dev)
+    correct_ms, adopted = [], []
+    correct_loop = mstage.loop_closing.correct_loop
+
+    def timed_correct_loop(*a, **k):   # on the worker's thread and stream
+        torch.cuda.current_stream().synchronize()
+        t = time.perf_counter()
+        r = correct_loop(*a, **k)
+        torch.cuda.current_stream().synchronize()
+        correct_ms.append((time.perf_counter() - t) * 1e3)
+        return r
+
+    adopt = system._adopt
+
+    def watched_adopt(entry):
+        adopt(entry)
+        res = entry[1]["result"]
+        if res.pt_remap is not None:
+            adopted.append({"frame": system.tracker.frame_id + 1, "kid": res.kid})
+
+    system._adopt = watched_adopt
+    # no job (loop closing included) writes its input state's tensors in place
+    unchanged, process = [], system.mapping.process
+    fields = type(system.state)._fields
+
+    def checked_process(job):
+        state = system.mapping.state
+        before = [getattr(state, k)._version for k in fields]
+        res = process(job)
+        unchanged.append([getattr(state, k)._version for k in fields] == before)
+        return res
+
+    system.mapping.process = checked_process
+    frame_ms = []
+    mstage.loop_closing.correct_loop = timed_correct_loop
+    try:
+        for i, (left, right) in enumerate(frames):
+            t = time.perf_counter()
+            system.track_stereo(left, right, timestamp=i * 0.1)
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+        ts, poses, ok_rel = system._frame_poses()
+    finally:
+        mstage.loop_closing.correct_loop = correct_loop
+        system.shutdown()
+    ok = np.array([bool(o) for _, _, o in system.tracker.trajectory])
+    ate, gap, lap2 = lw.lap_metrics(xys, ts, poses, ok_rel)
+    at_adoption = [frame_ms[a["frame"]] for a in adopted if a["frame"] < len(frame_ms)]
+    rep = {"card": smi, "frames": len(frames), "ok_share": float(ok.mean()), "n_kf": system.n_kf,
+           "loop_closures": system.loop_closures, "remaps_adopted": adopted,
+           "correct_loop_ms": correct_ms, "frame_ms_at_adoption": at_adoption,
+           "frame_ms_median": _median(frame_ms), "ate_m": ate, "lap_gap_m": gap,
+           "lap2_max_m": lap2, "blocked_ms": dict(system.blocked_ms), "vocab_s": vocab_s,
+           "phase_s": time.perf_counter() - t_phase}
+    check(system.loop_closures >= 1 and adopted, f"12c a closure adopted with its remap: {rep}")
+    check(all(unchanged), f"12c no MapState tensor written in place by a job: {unchanged}")
+    check(ok.mean() > 0.9 and ate < 0.5 and gap < 0.5 and lap2 < 0.5,
+          f"12c tests/test_long_run.py's bars: {rep}")
+    print(f"phase 12c loop circuit (tests/test_long_run.py: {len(frames)} 224x160 stereo "
+          f"frames, a 512-word vocabulary trained in {vocab_s:.1f} s): ok {ok.mean():.3f}, "
+          f"{system.n_kf} keyframes, {system.loop_closures} closure(s), remaps adopted at "
+          f"{adopted}; correct_loop in the worker {', '.join(f'{x:.1f}' for x in correct_ms)} "
+          f"ms; frame ms at the adoption {', '.join(f'{x:.1f}' for x in at_adoption)} (median "
+          f"frame {rep['frame_ms_median']:.1f}); ATE {ate:.4f} m, lap gap {gap:.4f} m, lap-2 "
+          f"{lap2:.4f} m; blocked in _adopt {system.blocked_ms['adopt']:.1f} ms, "
+          f"_prewait_mapping {system.blocked_ms['prewait']:.1f} ms; {rep['phase_s']:.0f} s on "
+          f"{smi}", flush=True)
+    return rep
+
+
+def system_phase(dev, smi):
+    """Phase 12 (see the module docstring) -> the report's "system" entry."""
+    t_phase = time.perf_counter()
+    rep = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rep["cli_objects"] = cli_objects_phase(dev, smi, tmp)
+        rep["cli_layouts"] = cli_layouts_phase(dev, smi, tmp)
+    rep["loop"] = system_loop_phase(dev, smi)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 12 took {rep['phase_s']:.0f} s", flush=True)
     return rep
 
 
@@ -1924,6 +2533,8 @@ def main(argv=None):
     report["objects"], kernels_f32 = objects_phase(dev, smi, mem_bw)
     # ---- 11. monocular initialization and loop closing (no kernel of the port)
     report["loop"] = loop_phase(dev, smi)
+    # ---- 12. the system loop and the command line (f32 kernels in the worker)
+    report["system"] = system_phase(dev, smi)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "rows", "dtype")

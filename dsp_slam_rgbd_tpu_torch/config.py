@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import json
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, replace  # noqa: F401  (re-exported)
 
 from dsp_slam_rgbd_tpu_torch.frontend.orb import OrbConfig
 from dsp_slam_rgbd_tpu_torch.ops.camera import Intrinsics

@@ -20,7 +20,14 @@ match count once, and runs `solvers/initializer.py`, whose RANSAC samples
 come from a CPU `torch.Generator` (the JAX package's PRNGKey stream is
 not reproduced); the result's verdict, mask and points are read once.
 
-Not ported yet: the one-frame pipelined path; the `Tracker` raises for it.
+With `TrackingConfig.pipelined`, the steady OK state runs one frame deep
+(`_track_pipelined`, the JAX package's `tracker.py:543-663`): frame N+1's
+tracking stages are queued before frame N's stats are read, and the read
+is a non-blocking copy into pinned memory with an event.  With no host
+read inside the frame, the retry at twice the radius and the local-map
+stage always run, and the motion-model stage's counts select their
+results on the device (`_track_frame_device`, the JAX package's two
+`lax.cond`s as selects).
 """
 from __future__ import annotations
 
@@ -303,19 +310,65 @@ def _track_frame_fused(cam, state: ms.MapState, t_last, velocity,
     return t2, pt2, stats, vis, fnd
 
 
+def _track_frame_device(cam, state: ms.MapState, t_last, velocity,
+                        feat_xy, feat_desc, feat_level, feat_valid,
+                        feat_angle, ur, depth, last_pt_idx, last_angles,
+                        radius, th_depth_m, n_keep: int, stereo: bool):
+    """`_track_frame_fused` with no host read, for the pipelined path: the
+    retry at twice the radius and the local-map stage always run, and the
+    motion-model stage's counts select their results on the device, as the
+    JAX package's `lax.cond`s choose them.  Returns (t_cw, pt_idx, stats (15,)
+    on the device, pt_visible', pt_found')."""
+    F = feat_xy.shape[0]
+    base = torch.full((F,), -1, dtype=torch.int32, device=feat_xy.device)
+    t_pred = velocity @ t_last
+
+    def run(r, vote, base_idx, t0, rot: bool, upd: bool):
+        return _track_stage_core(
+            cam, state, vote, base_idx, t0, feat_xy, feat_desc, feat_level,
+            feat_valid, feat_angle, ur, depth, last_pt_idx, last_angles,
+            r, th_depth_m, n_keep, rot, stereo, upd)
+
+    t1, pt1, s1, _, _ = run(radius, last_pt_idx, base, t_pred, True, False)
+    t1b, pt1b, s1b, _, _ = run(2.0 * radius, last_pt_idx, base, t_pred, True, False)
+    retry = s1[0] < 20
+    t1, pt1, s1 = (torch.where(retry, t1b, t1), torch.where(retry, pt1b, pt1),
+                   torch.where(retry, s1b, s1))
+    mm_ok = (s1[0] >= 20) & (s1[1] >= 10)
+    t2, pt2, s2, vis, fnd = run(4.0, pt1, pt1, t1, False, True)
+    stats = torch.cat([s1, torch.where(mm_ok, s2, -1), mm_ok.to(torch.int32)[None]])
+    return (torch.where(mm_ok, t2, t1), torch.where(mm_ok, pt2, pt1), stats,
+            torch.where(mm_ok, vis, state.pt_visible), torch.where(mm_ok, fnd, state.pt_found))
+
+
+def _copy_to_host_async(stats: torch.Tensor):
+    """Start the stats' copy to the host: (pinned buffer, event) on the
+    card; on the CPU the tensor itself."""
+    if stats.device.type != "cuda":
+        return stats, None
+    host = torch.empty(stats.shape, dtype=stats.dtype, pin_memory=True)
+    host.copy_(stats, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _host_stats(pending) -> np.ndarray:
+    """Wait for a copy from `_copy_to_host_async` and read it."""
+    host, event = pending
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
+
+
 class Tracker:
     """Host-driven tracking state machine (stereo, RGB-D and mono,
-    synchronous).
+    synchronous or one frame deep with `TrackingConfig.pipelined`).
 
     `state` must live on `device`; entry points default to the card and
     raise without one unless given device="cpu"."""
 
     def __init__(self, cfg: SystemConfig, state: ms.MapState, device="cuda"):
-        if cfg.tracking.pipelined:
-            raise NotImplementedError(
-                "TrackingConfig.pipelined: the one-frame pipelined path comes "
-                "with the system-loop slice (slice E); use the synchronous "
-                "path")
         self.device = device_mod.resolve(device)
         self.cfg = cfg
         self.state = state
@@ -339,6 +392,7 @@ class Tracker:
         self._init_gen = torch.Generator().manual_seed(0)
         self._kv_memo = None  # (kf_valid tensor, host copy)
         self._stage_stats = None  # last tracking stage's stats (np)
+        self._inflight = None     # the pipelined path's dispatched frame
         # frames whose covisible window held more points than LOCAL_PTS
         self.local_pts_overflows = 0
         # optional place-recognition hook: frame -> candidate KF slots
@@ -388,9 +442,16 @@ class Tracker:
     # ------------------------------------------------------------------
     def track(self, img=None, img_right=None, depth_map=None,
               timestamp: float = 0.0, frame: Optional[Frame] = None) -> list:
-        """Process one frame.  Returns a list of one status dict; the caller
-        handles keyframe insertion when its "new_kf" is set.  `frame`: a
-        pre-built Frame."""
+        """Process one frame.  Returns a list of status dicts in frame order;
+        the caller handles keyframe insertion for each whose "new_kf" is set.
+        `frame`: a pre-built Frame (`system/prefetch.FramePrefetcher`).
+
+        With `TrackingConfig.pipelined`, in the steady OK state this call
+        queues this frame's stages and finalizes the previous frame, so the
+        dicts describe the previous frame (none, or two after a failure);
+        while the pipeline primes, a provisional dict (``provisional=True``)
+        is returned.  State-machine transitions drain the pipeline and run
+        synchronously."""
         self.frame_id += 1
         if frame is None:
             frame = self.make_frame(img, img_right, depth_map, timestamp)
@@ -408,7 +469,11 @@ class Tracker:
                 self.trajectory.append((timestamp, self.last_frame.t_cw, True))
             out["frame"] = self.last_frame or frame
             return [out]
-        return self._track_sync(frame, timestamp, self.frame_id)
+        if self.cfg.tracking.pipelined and self.status == "OK" \
+                and self.last_frame is not None and not self.map_changed:
+            return self._track_pipelined(frame, timestamp)
+        outs = self.finalize_pending()  # drain the pipeline before a sync frame
+        return outs + self._track_sync(frame, timestamp, self.frame_id)
 
     def _track_sync(self, frame: Frame, timestamp: float, fid: int) -> list:
         """The synchronous per-frame path: the fast path, then the fallback
@@ -429,15 +494,18 @@ class Tracker:
         return [self._commit_frame(frame, timestamp, fid, ok)]
 
     def _commit_frame(self, frame: Frame, timestamp: float, fid: int,
-                      ok: bool) -> dict:
+                      ok: bool, velocity=None, t_rel=None, rel_ref=None) -> dict:
         """Per-frame epilogue: status transition, motion-model velocity,
-        trajectory entries (device tensors), keyframe census."""
+        trajectory entries (device tensors), keyframe census.  The pipelined
+        path passes the velocity and T_rel it computed at dispatch, with the
+        reference keyframe T_rel is relative to."""
         was_lost = self.status == "LOST"
         self.status = "OK" if ok else "LOST"
         eye = torch.eye(4, device=self.device)
-        last_t = self.last_frame.t_cw if self.last_frame is not None else eye
-        ref_pose = self.state.kf_pose[self.ref_kf] if self.ref_kf >= 0 else eye
-        velocity, t_rel = _frame_epilogue(frame.t_cw, last_t, ref_pose)
+        if velocity is None:
+            last_t = self.last_frame.t_cw if self.last_frame is not None else eye
+            ref_pose = self.state.kf_pose[self.ref_kf] if self.ref_kf >= 0 else eye
+            velocity, t_rel = _frame_epilogue(frame.t_cw, last_t, ref_pose)
         if ok and self.last_frame is not None and not was_lost:
             self.velocity = velocity
         elif was_lost:
@@ -445,11 +513,104 @@ class Tracker:
             # poisons the motion model after relocalization
             self.velocity = eye
         self.trajectory.append((timestamp, frame.t_cw, ok))
-        if self.ref_kf >= 0:
-            self.relative_trajectory.append((timestamp, self.ref_kf, t_rel, ok))
+        ref = rel_ref if rel_ref is not None else self.ref_kf
+        if ref >= 0:
+            self.relative_trajectory.append((timestamp, ref, t_rel, ok))
         self.last_frame = frame
         return {"frame": frame, "ok": ok, "fid": fid, "timestamp": timestamp,
                 "new_kf": ok and self._need_new_keyframe(fid)}
+
+    # ---- one-frame-deep pipelined tracking ---------------------------
+    def _dispatch_pipelined(self, frame: Frame, timestamp: float) -> dict:
+        """Queue the tracking stages of `frame` against the optimistic last
+        outputs (the in-flight frame's, if any) and the pose epilogue, and
+        start the stats' copy to the host; no host read."""
+        infl = self._inflight
+        if infl is not None:
+            lf_pt, lf_ang, base_t = infl["pt_idx"], infl["frame"].feats.angle, infl["t_cw"]
+        else:
+            lf = self.last_frame
+            lf_pt, lf_ang, base_t = lf.pt_idx, lf.feats.angle, lf.t_cw
+        pre_state = self.state
+        t_cw, pt_idx, stats, vis, fnd = _track_frame_device(
+            self.cfg.cam, self.state, base_t, self.velocity,
+            frame.feats.xy, frame.feats.desc, frame.feats.level,
+            frame.feats.valid, frame.feats.angle, frame.ur, frame.depth,
+            lf_pt, lf_ang, self._radius, self._th_depth_m(),
+            self.cfg.map.local_window, self._stereo)
+        stats_host = _copy_to_host_async(stats)
+        self.state = self.state._replace(pt_visible=vis, pt_found=fnd)
+        # ref_kf is one frame stale here: T_rel is exact for whichever
+        # keyframe it records
+        eye = torch.eye(4, device=self.device)
+        ref_pose = self.state.kf_pose[self.ref_kf] if self.ref_kf >= 0 else eye
+        vel, t_rel = _frame_epilogue(t_cw, base_t, ref_pose)
+        return {"fid": self.frame_id, "frame": frame, "t_cw": t_cw, "pt_idx": pt_idx,
+                "stats": stats_host, "ts": timestamp, "pre_state": pre_state,
+                "vel": vel, "t_rel": t_rel, "ref": self.ref_kf}
+
+    def _track_pipelined(self, frame: Frame, timestamp: float) -> list:
+        infl = self._inflight
+        disp = self._dispatch_pipelined(frame, timestamp)
+        self._inflight = disp
+        if infl is None:
+            # priming: this frame's decisions come with the next call
+            prov = frame._replace(t_cw=disp["t_cw"], pt_idx=disp["pt_idx"])
+            return [{"frame": prov, "ok": True, "new_kf": False, "fid": disp["fid"],
+                     "timestamp": timestamp, "provisional": True}]
+        return self._finalize_one(infl, speculative=disp)
+
+    def finalize_pending(self) -> list:
+        """Finalize the in-flight pipelined frame, if any (state
+        transitions, flush, shutdown)."""
+        infl = self._inflight
+        if infl is None:
+            return []
+        self._inflight = None
+        return self._finalize_one(infl, speculative=None)
+
+    def _finalize_one(self, infl: dict, speculative) -> list:
+        """Read and decide the in-flight frame.  On success its optimistic
+        outputs are committed and the speculative next dispatch stays valid;
+        on failure the speculative dispatch is rewound, the fallback chain
+        runs for the failed frame, and the speculative frame is tracked again
+        synchronously."""
+        if self.pre_fetch_hook is not None:
+            self.pre_fetch_hook()
+        stats = _host_stats(infl["stats"])
+        self._warn_local_overflow(stats)
+        if stats[9] >= 0:
+            self.ref_kf = int(stats[9])
+        elif stats[2] >= 0:
+            self.ref_kf = int(stats[2])
+        ok = False
+        if stats[14] != 0:
+            self._stage_stats = stats[7:14]
+            n_tracked = int(stats[8])
+            ok = n_tracked >= self.cfg.tracking.min_tracked_for_ok
+        else:
+            self._stage_stats = stats[0:7]
+        if ok:
+            self.n_inliers_last = n_tracked
+            frame1 = infl["frame"]._replace(t_cw=infl["t_cw"], pt_idx=infl["pt_idx"])
+            return [self._commit_frame(frame1, infl["ts"], infl["fid"], True,
+                                       velocity=infl["vel"], t_rel=infl["t_rel"],
+                                       rel_ref=infl["ref"])]
+        if speculative is not None:
+            self.state = speculative["pre_state"]
+            self._inflight = None
+        frame1, ok2 = self._track_reference_kf(infl["frame"])
+        if not ok2:
+            frame1, ok2 = self._relocalize(frame1)
+        if ok2:
+            frame1, n = self._track_local_map(frame1)
+            ok2 = n >= self.cfg.tracking.min_tracked_for_ok
+            self.n_inliers_last = n
+        outs = [self._commit_frame(frame1, infl["ts"], infl["fid"], ok2)]
+        if speculative is not None:
+            outs += self._track_sync(speculative["frame"], speculative["ts"],
+                                     speculative["fid"])
+        return outs
 
     # ------------------------------------------------------------------
     def _stereo_init(self, frame: Frame) -> bool:

@@ -20,11 +20,10 @@ the driver inserts the keyframe with one of two stages:
     the keyframe stage with the BoW database and loop closing (see
     `loop_inputs`);
   * "mono": the monocular sequence: the two-frame initialization goes in
-    through the package's `insert_mono_init` (the port's
-    `system/slam.py`, the JAX package's `SLAMSystem._insert_mono_init`),
+    through the package's `SLAMSystem._insert_mono_init`,
     every later keyframe through `MappingStage.process`;
   * "reloc": "loop" with the tracker's relocalization candidates from the
-    BoW database (`reloc_candidates`, installed as
+    BoW database (`SLAMSystem._reloc_candidates`, installed as
     `Tracker.reloc_candidates_fn`).
 
 Run as a script, it drives the JAX package on the CPU at the KITTI-size
@@ -38,6 +37,17 @@ each object's center error and the dynamic flags, the numbers phase 10's
 bands come from:
 
     JAX_PLATFORMS=cpu python tests/tracking_driver.py
+
+With `cli DIR` it writes `chip_smoke.py` phase 12a's KITTI directory into
+DIR (`tools/sequence_dirs.py::write_kitti_objects`) and runs the JAX
+package's command line (`tools/run_slam.py`) over it with 12a's arguments,
+its yaml reader wrapped to give a keyframe the port's command line's
+feature slots (`run_slam.feature_slots`: 2,048 for the yaml's 2,000
+features, where the JAX command line keeps 1,024), and prints the ATE
+after a rigid alignment, the largest translation error and the static
+objects' center errors, the numbers 12a's bands come from (~5 min):
+
+    JAX_PLATFORMS=cpu python tests/tracking_driver.py cli DIR
 """
 import os
 import sys
@@ -109,21 +119,34 @@ def jax_reloc_candidates(tr, mapping, kf_valid):
 
 
 def port_insert_mono_init(tr, mapping, kf_valid):
-    from dsp_slam_rgbd_tpu_torch.system import slam
+    """The port's `SLAMSystem._insert_mono_init` over the driver's tracker,
+    mapping stage and keyframe mask (its mapping stage shares the mask)."""
+    import types
 
-    return slam.insert_mono_init(mapping, tr, kf_valid)
+    from dsp_slam_rgbd_tpu_torch.system.slam import SLAMSystem
+
+    shim = types.SimpleNamespace(tracker=tr, mapping=mapping, _kf_valid_host=kf_valid,
+                                 state=tr.state, n_kf=0, _map_stream=None,
+                                 flush=lambda: None)
+    SLAMSystem._insert_mono_init(shim)
+    return shim.n_kf
 
 
 def port_reloc_candidates(tr, mapping, kf_valid):
-    from dsp_slam_rgbd_tpu_torch.system import slam
+    """The port's `SLAMSystem._reloc_candidates` as a frame -> slots hook,
+    over the mapping stage's current database."""
+    import types
 
-    return lambda frame: slam.reloc_candidates(mapping, tr, frame)
+    from dsp_slam_rgbd_tpu_torch.system.slam import SLAMSystem
+
+    return lambda frame: SLAMSystem._reloc_candidates(types.SimpleNamespace(
+        tracker=tr, vocab=mapping.vocab, _db_view=mapping.db), frame)
 
 
 def loop_inputs(stage_mod, port: bool, on_keyframe=None, **stage_kwargs):
     """The "loop", "mono" and "reloc" stages' inputs for `drive`:
     `stage_mod` is either package's mapping_stage module, `port` says which
-    package (it picks `insert_mono_init`/`reloc_candidates`),
+    package (it picks the `SLAMSystem` methods it calls),
     `stage_kwargs` its `vocab` (None: no BoW database)."""
     return {"stage": lambda cfg, state, kv: stage_mod.MappingStage(cfg, state, kv, **stage_kwargs),
             "job": stage_mod.KFJob, "detections": lambda i: (None, None),
@@ -291,5 +314,59 @@ def main():
           + f" ({time.perf_counter() - t0:.0f} s)", flush=True)
 
 
+def cli_run(root):
+    """The JAX command line over phase 12a's directory (see the module
+    docstring) -> {"ate_m", "max_err_m", "static_center_err_m", "summary"}."""
+    import json
+    from unittest import mock
+
+    import torch
+
+    from dsp_slam_rgbd_tpu import config
+    from dsp_slam_rgbd_tpu_torch.solvers import sim3
+    from dsp_slam_rgbd_tpu_torch.system import io as io_mod
+    from dsp_slam_rgbd_tpu_torch.tools import run_slam as port_cli
+    from dsp_slam_rgbd_tpu_torch.tools import sequence_dirs as sd
+    from tools import run_slam as jax_cli
+
+    paths = sd.write_kitti_objects(root)
+    out = os.path.join(root, "out_jax")
+    read = config.from_reference_yaml_json
+
+    def sized(*a, **k):
+        cfg = read(*a, **k)
+        return config.replace(cfg, map=config.replace(cfg.map,
+                                                      max_feat=port_cli.feature_slots(cfg)))
+
+    argv = ["run_slam.py", paths["seq"], out, "--yaml", paths["yaml"], "--labels",
+            paths["labels"], "--deepsdf", FIXTURE, "--vocab", os.path.join(root, "vocab.npz"),
+            "--bootstrap-vocab", "24", "--vocab-depth", "4", "--gt", paths["gt"]]
+    with mock.patch.object(config, "from_reference_yaml_json", sized), \
+            mock.patch.object(sys, "argv", argv):
+        jax_cli.main()
+    rows = np.loadtxt(os.path.join(out, "CameraTrajectory.txt"), ndmin=2)[:, [3, 7, 11]]
+    gt = np.loadtxt(paths["gt"], ndmin=2)[:, [3, 7, 11]]
+    ate = float(sim3.align_trajectories(torch.tensor(rows, dtype=torch.float32),
+                                        torch.tensor(gt[:len(rows)], dtype=torch.float32),
+                                        fix_scale=True)[1])
+    ids, poses, _ = io_mod.load_map_objects(os.path.join(out, "MapObjects.txt"))
+    centers = [float(np.linalg.norm(poses[:, :3, 3] - t.center, axis=1).min())
+               for t in ow.kitti_objects()[:7]]
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    return {"ate_m": ate, "max_err_m": float(np.abs(rows - gt[:len(rows)]).max()),
+            "rows": len(rows), "static_center_err_m": centers, "map_objects": len(ids),
+            "summary": summary}
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["cli"]:
+        t0 = time.perf_counter()
+        r = cli_run(sys.argv[2])
+        print(f"JAX package's command line on the CPU over phase 12a's directory: "
+              f"{r['rows']} rows, ATE {r['ate_m']!r} m, largest translation error "
+              f"{r['max_err_m']!r} m, {r['map_objects']} map objects, static centers "
+              + ", ".join(f"{e:.4f}" for e in r["static_center_err_m"])
+              + f" m; summary {r['summary']} ({time.perf_counter() - t0:.0f} s)", flush=True)
+    else:
+        main()
