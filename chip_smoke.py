@@ -12,8 +12,9 @@ and the keyframe stage at KITTI size (phases 8 and 9a), bundle
 adjustment at KITTI-00 scale (phases 9b and 9c), and the keyframe
 `MappingStage` with its object stage, where the f32 kernels run inside
 the SLAM loop (phase 10), the mono object pipeline (10c), monocular
-initialization and loop closing (phase 11), and the system loop and its
-command line (phase 12).  Exits non-zero, with no
+initialization and loop closing (phase 11), the system loop and its
+command line (phase 12), and the scale-out tier and active mapping
+(phase 13).  Exits non-zero, with no
 result line, if there is no card or any phase fails.  Prints, before the
 last line, the card's name and power limit and one JSON line of kernel
 numbers; the last line is {"ok": true, "device": {...}}.  With --report,
@@ -211,7 +212,13 @@ frames and jobs; `system_overrides` sets `async_kf_frames` or `pipelined`):
     phase's tracking configuration and the command line's map, held to
     that phase's bars: RGB-D >= 90% of frames, >= 2 keyframes, largest x
     error under RGBD_BAND; mono >= 60% of frames, >= 2 keyframes,
-    Sim(3)-aligned ATE under 8% of the path;
+    Sim(3)-aligned ATE under 8% of the path.  Each RGB-D run is also held
+    to the JAX command line's run of the same mode on the CPU (JAX_RGBD,
+    `tests/tracking_driver.py pipelined`): the same keyframe count (4
+    synchronous, 6 pipelined) and every frame's camera center within
+    RGBD_FRAME_BAND.  The pipelined run goes twice, and its two runs'
+    camera centers must lie within that band of each other too (the
+    spread of the card's own runs, printed);
   * 12c: tests/test_long_run.py's circuit (`tools/loop_world.py`, 117
     224x160 stereo frames, its vocabulary) through `SLAMSystem(vocab=...)`:
     >= 1 loop closure whose point remap is adopted (`_adopt_merge`), > 90%
@@ -220,6 +227,48 @@ frames and jobs; `system_overrides` sets `async_kf_frames` or `pipelined`):
     tensor of the state it started from (`Tensor._version`); it prints
     `correct_loop`'s ms inside the worker and the frame ms at the
     closure's adoption.
+
+Phase 13 drives the scale-out tier (`parallel/`) and active mapping
+(`active/`); one card, so the group has one rank and scaling at N >= 2 is
+not measured:
+  * 13a: a world-size-1 NCCL group (`parallel/distributed.initialize`,
+    `file://` rendezvous) and a (1, 1) mesh: `reconstruct_sharded` at
+    phase 4's problem under `gpu_fast` bf16 and under `ReconConfig()` f32,
+    each within 1e-5 of the unsharded fit with the same is_good and both
+    of its dtype's kernels launched; `run_sharded_ba` on phase 9b's
+    corridor window at keyframe 500 (one LM step of the window recentered,
+    9c's gauge, within 1e-4 of the unsharded step; the whole run within
+    1e-3 poses / 1e-2 points, the
+    same gated edges, reprojection cut below 0.7x) and
+    `global_ba_pcg_sharded` over the whole corridor against the same LM
+    stages unsharded (2e-2 / 5e-2, cut below 0.5x); ms beside the
+    unsharded ms;
+  * 13b: `tools/run_slam.py --distributed --num-processes 1` (NCCL over
+    tcp://localhost) over the first 8 frames of 12a's directory, twice:
+    as it runs (one rank: no mesh), and with the system given a (1, 1)
+    mesh in that group, so that the new objects are fitted through
+    `reconstruct_sharded` and the ranks' agreement checks run from the
+    mapping worker's thread and stream.  Each run's CameraTrajectory.txt and
+    MapObjects.txt within 1e-5 of the run without --distributed, all three
+    under `distributed.keep_replicas_identical` (deterministic algorithms,
+    as `initialize` turns on for more than one rank: `index_add_` in BA
+    otherwise sums in another order each run); both f32 kernels launched
+    in each run and inside the mesh run's `reconstruct_sharded` calls;
+    the group joined on NCCL and left after;
+  * 13c: `nbv.generate` on phase 10's final map from its last frame with
+    the fixture decoder, aimed at the object that owns the most map
+    points, and on a map of one object of the fixture's family with 200
+    member points near its surface (tests/test_torch_active.py's case):
+    each the same best candidate as the port on the CPU, the 37 rewards within 1e-4 of the largest, the
+    uncertainty within 1e-4 relative, the f32 value kernel launched;
+    `rrt.plan` over the card's and the CPU's obstacles gives the same
+    path; `system/renderer.py` (every object composited at stride 16, the
+    object nearest the optical axis at stride 8, 16 samples a ray) against its CPU run: hit masks
+    differ at <= 0.1% of pixels, depth within 1e-3 m where both hit.
+  Each of its paths has its own decoder launch counts, reset just before
+  it and read just after, in the kernels line's `launches_by_path`
+  (`launches` stays the kernel's main path: phase 4 for bf16, phase 10 for
+  f32).
 """
 import argparse
 import contextlib
@@ -772,7 +821,8 @@ def ba_scale_phase(dev, smi):
     """Phases 9b and 9c: bundle adjustment on the KITTI-00-scale corridor
     map (`tools/corridor_map.py`: 1,000 keyframes, 200,000 points, 200
     features per keyframe) on the card, held to tests/test_ba_scale.py's
-    criteria, then the card against the CPU."""
+    criteria, then the card against the CPU.  -> (report entry, the
+    corridor's MapState on the card, for phase 13a)."""
     from dsp_slam_rgbd_tpu_torch.mapping import ba
     from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
     from dsp_slam_rgbd_tpu_torch.mapping import map_state as ms
@@ -868,7 +918,7 @@ def ba_scale_phase(dev, smi):
     rep.update(step_card_vs_cpu=steps, corridor24=small)
     print(f"phase 9c card vs CPU: one LM step (largest differences in the map's coordinates "
           f"and recentered) {steps}; 24-KF corridor {small} on {smi}", flush=True)
-    return rep
+    return rep, state
 
 
 # ---------------------------------------------------------------------------
@@ -918,8 +968,9 @@ class StageProbe:
             torch.cuda.synchronize()
             r = self.rec.setdefault(part, {"ms": 0.0, "value": 0, "jacobian": 0})
             r["ms"] += (time.perf_counter() - t0) * 1e3
-            r["value"] += mlp_sdf.LAUNCHES["mlp_sdf_value"] - l0["mlp_sdf_value"]
-            r["jacobian"] += mlp_sdf.LAUNCHES["mlp_sdf_jacobian"] - l0["mlp_sdf_jacobian"]
+            r["value"] += mlp_sdf.LAUNCHES["mlp_sdf_value_f32"] - l0["mlp_sdf_value_f32"]
+            r["jacobian"] += (mlp_sdf.LAUNCHES["mlp_sdf_jacobian_f32"]
+                              - l0["mlp_sdf_jacobian_f32"])
             return out
         return run
 
@@ -1124,7 +1175,8 @@ def object_stage_card_vs_cpu(saved, dec, dec_cpu, cfg, dev):
 def objects_phase(dev, smi, mem_bw):
     """Phase 10: the port's `MappingStage.process` on every keyframe of the
     KITTI-size stereo world with 8 objects (see the module docstring) ->
-    (the report's "objects" entry, the f32 kernels' JSON entries)."""
+    (the report's "objects" entry, the f32 kernels' JSON entries, (the final
+    map, the run's configuration, the last frame's T_cw) for phase 13c)."""
     from dsp_slam_rgbd_tpu_torch.models import deepsdf
     from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
     from dsp_slam_rgbd_tpu_torch.system import mapping_stage as mstage
@@ -1163,8 +1215,9 @@ def objects_phase(dev, smi, mem_bw):
     check(len(movers) == 1 and movers[0]["dynamic"], f"10 the mover is dynamic: {movers}")
     check(max(w[3] for w in windows) > 0 and max(w[4] for w in windows) > 0,
           f"10 object edges in the BA windows: {windows}")
-    check(launches["mlp_sdf_value"] > 0 and launches["mlp_sdf_jacobian"] > 0,
-          f"10 both f32 kernels launched in the SLAM loop: {launches}")
+    check(launches["mlp_sdf_value_f32"] > 0 and launches["mlp_sdf_jacobian_f32"] > 0
+          and launches["mlp_sdf_value"] == launches["mlp_sdf_jacobian"] == 0,
+          f"10 both f32 kernels, and no bf16 one, launched in the SLAM loop: {launches}")
     print(f"phase 10 objects (KITTI stereo, {n} frames, 8 objects, 256 points and 512 rays a "
           f"detection, ReconConfig() f32): ok {ok.mean():.3f}, {n_kf} keyframes (JAX "
           f"{JAX_OBJECTS['keyframes']}), culled {culled} (JAX {JAX_OBJECTS['culled']}), largest "
@@ -1243,17 +1296,17 @@ def objects_phase(dev, smi, mem_bw):
         dict(name="mlp_sdf_value_f32", route="cuda",
              source="dsp_slam_rgbd_tpu_torch/csrc/mlp_sdf_f32.cu",
              replaces="dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py:237",
-             launches=launches["mlp_sdf_value"],
+             launches=launches["mlp_sdf_value_f32"],
              **{k: v for k, v in times["value_render"].items() if k in keys},
              small={k: v for k, v in times["value_bbox"].items() if k in keys}),
         dict(name="mlp_sdf_jacobian_f32", route="cuda",
              source="dsp_slam_rgbd_tpu_torch/csrc/mlp_sdf_f32.cu",
              replaces="dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py:159",
-             launches=launches["mlp_sdf_jacobian"],
+             launches=launches["mlp_sdf_jacobian_f32"],
              **{k: v for k, v in times["jacobian_render"].items() if k in keys},
              small={k: v for k, v in times["jacobian_refine"].items() if k in keys}),
     ]
-    return rep, kernels
+    return rep, kernels, (tr.state, tr.cfg, tr.last_frame.t_cw)
 
 
 def mono_phase(dev, dec, dec_cpu, smi):
@@ -1673,6 +1726,31 @@ JAX_CLI = {"ate_m": 0.076990507543087, "max_err_m": 0.2660200596, "keyframes": 8
 CLI_BAND, CLI_ERR_BAND = 1.5 * JAX_CLI["ate_m"], 1.5 * JAX_CLI["max_err_m"]
 # phase 11a's bars on the mono run (tests/test_mono_e2e.py): ok share, ATE / path
 MONO_OK, MONO_ATE_SHARE = 0.6, 0.08
+# the JAX package's command line on the CPU over 12b's RGB-D layout, synchronous and with
+# the pipelined tracker (`JAX_PLATFORMS=cpu python tests/tracking_driver.py pipelined DIR`):
+# keyframes, and the camera center of every frame (CameraTrajectory_TUM.txt, frames 0-11)
+JAX_RGBD = {
+    "sync": {"keyframes": 4, "centers": [
+        [0.0, 0.0, 0.0], [0.304203, 0.003549, -0.030795], [0.605039, 0.303048, -0.038897],
+        [1.036382, 0.371508, 0.043988], [1.402747, -0.049641, 0.017623],
+        [1.76821, 0.013488, -0.010552], [2.109262, 0.040399, -0.013512],
+        [2.453847, 0.040915, -0.01173], [2.797793, 0.036182, -0.006956],
+        [3.178231, 0.04568, -0.026788], [3.473174, 0.056981, -0.006821],
+        [3.812508, 0.040617, -0.004054]]},
+    "pipelined": {"keyframes": 6, "centers": [
+        [0.0, 0.0, 0.0], [0.304203, 0.003549, -0.030795], [0.605039, 0.303048, -0.038897],
+        [1.036384, 0.371505, 0.043989], [1.40274, -0.049638, 0.017624],
+        [1.754833, -0.000572, 0.003416], [2.109961, 0.032435, -0.006265],
+        [2.46128, 0.040466, -0.010358], [2.78442, 0.021996, 0.006322],
+        [3.155051, 0.024952, -0.007925], [3.493958, 0.070364, -0.008457],
+        [3.793778, 0.052862, 0.005552]]}}
+# 12b's frame-by-frame band on the camera centers against JAX_RGBD (m). The CPU parity
+# tests hold the port's frames to JAX's within 1e-2 m (tests/test_torch_tracking.py), but
+# those runs repeat bit for bit. On the card `index_add_` sums in another order each run,
+# which flips a converged LM's accept tests: two pipelined runs of the same code differ
+# from each other by up to ~1e-2 m at a frame from the fifth on (12b runs it twice and
+# prints that spread). The band is twice that spread.
+RGBD_FRAME_BAND = 2e-2
 
 
 def _union(intervals):
@@ -1927,7 +2005,7 @@ def cli_objects_phase(dev, smi, tmp):
                                trace_path=os.path.join(tmp, "frame_trace.json"))
     run_s = time.perf_counter() - t0
     launches = dict(mlp_sdf.LAUNCHES)
-    check(launches["mlp_sdf_value"] > 0 and launches["mlp_sdf_jacobian"] > 0,
+    check(launches["mlp_sdf_value_f32"] > 0 and launches["mlp_sdf_jacobian_f32"] > 0,
           f"12a both f32 kernels launched from the command line's run: {launches}")
     got = cli_objects_check(paths, os.path.join(tmp, "out12a"), res)
     summ, traced, misses = res["summary"], rec["traced"], rec["misses"]
@@ -2074,27 +2152,48 @@ def cli_layouts_phase(dev, smi, tmp):
         finals.append(len(outs))
         return outs
 
-    for mode in ("sync", "pipelined"):
+    runs = {}
+    for mode, tag in (("sync", "sync"), ("pipelined", "pipelined"),
+                      ("pipelined", "pipelined_again")):
         t0 = time.perf_counter()
         with mock.patch.object(trk, "_copy_to_host_async", counted_copy), \
                 mock.patch.object(trk.Tracker, "_finalize_one", counted_finalize):
-            res, cen, fi = _layout_run(tmp, root, yaml, f"out_rgbd_{mode}", "rgbd",
+            res, cen, fi = _layout_run(tmp, root, yaml, f"out_rgbd_{tag}", "rgbd",
                                        pipelined=mode == "pipelined")
+        runs[tag] = cen
         err = np.abs(cen[:, 0] - np.array([pw.gt_x(pw.KITTI, f) for f in fi]))
         s = res["summary"]
-        rep[f"rgbd_{mode}"] = r = {"summary": s, "rows": len(fi), "max_x_err_m": float(err.max()),
+        jax = JAX_RGBD[mode]
+        jax_dist = np.linalg.norm(cen - np.asarray(jax["centers"])[fi], axis=1) \
+            if fi.max() < len(jax["centers"]) else np.full(len(fi), np.inf)
+        rep[f"rgbd_{tag}"] = r = {"summary": s, "rows": len(fi), "max_x_err_m": float(err.max()),
                                    "band_m": RGBD_BAND, "pinned_copies": len(copies),
-                                   "finalized": len(finals), "s": time.perf_counter() - t0}
+                                   "finalized": len(finals), "s": time.perf_counter() - t0,
+                                   "jax_keyframes": jax["keyframes"],
+                                   "jax_frame_dist_m": jax_dist.tolist()}
         check(len(fi) >= 0.9 * 12 and s["n_kf"] >= 2 and np.isfinite(cen).all()
               and err.max() < RGBD_BAND, f"12b RGB-D {mode}: {r}")
+        check(s["n_kf"] == jax["keyframes"] and len(fi) == len(jax["centers"])
+              and jax_dist.max() < RGBD_FRAME_BAND,
+              f"12b RGB-D {mode} held to the JAX command line's {mode} run frame by frame: {r}")
         if mode == "pipelined":
             check(len(finals) >= 6 and len(copies) >= 6 and all(copies),
                   f"12b the pipelined tracker finalized frames read through pinned copies: {r}")
-        print(f"phase 12b RGB-D {mode} (rgb/ + 16-bit depth/ PNGs, 12 KITTI-size frames, phase "
-              f"8c's tracking configuration): {len(fi)} rows, {s['n_kf']} keyframes, largest x "
+        print(f"phase 12b RGB-D {tag} (rgb/ + 16-bit depth/ PNGs, 12 KITTI-size frames, phase "
+              f"8c's tracking configuration): {len(fi)} rows, {s['n_kf']} keyframes (JAX "
+              f"{jax['keyframes']}), camera centers within {jax_dist.max():.6f} m of JAX's frame "
+              f"by frame (band {RGBD_FRAME_BAND}), largest x "
               f"error {err.max():.6f} m (band {RGBD_BAND}), {s['fps']} fps, track ms p50 "
               f"{s['track_ms_p50']}; {len(finals)} frames finalized one frame late, "
               f"{len(copies)} stats copies to pinned memory on {smi}", flush=True)
+    a, b = runs["pipelined"], runs["pipelined_again"]
+    spread = np.linalg.norm(a - b, axis=1) if a.shape == b.shape else np.full(len(a), np.inf)
+    rep["rgbd_pipelined_run_to_run_m"] = spread.tolist()
+    check(spread.max() < RGBD_FRAME_BAND,
+          f"12b two pipelined runs within the band of each other: {spread.tolist()}")
+    print(f"phase 12b RGB-D pipelined, run to run on the card: camera centers within "
+          f"{spread.max():.6f} m of each other (frame by frame "
+          f"{', '.join(f'{x:.6f}' for x in spread)}) on {smi}", flush=True)
     t0 = time.perf_counter()
     world = pw.KITTI_FLOOR
     root, yaml = _layout_write(tmp, "mono", world, "mono", 14)
@@ -2208,6 +2307,440 @@ def system_phase(dev, smi):
     rep["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 12 took {rep['phase_s']:.0f} s", flush=True)
     return rep
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the scale-out tier and active mapping
+# ---------------------------------------------------------------------------
+# tolerances: the sharded reconstruction against the unsharded one 1e-5 (a one-rank group
+# sums nothing, so only launch sizes differ); one LM step of BA 1e-4 (9c's, and
+# tests/test_parallel.py's); whole sharded LM runs at tests/test_distributed_2proc.py's
+# (poses 1e-3, points 1e-2: a converged LM's accept tests sit at f32 rounding and
+# `index_add_`'s order changes from run to run on the card); sharded PCG at
+# tests/test_parallel.py's (poses 2e-2, points 5e-2)
+RECON_SHARD_TOL = 1e-5
+NBV_RTOL = 1e-4
+RENDER_HIT_SHARE, RENDER_DEPTH_TOL = 1e-3, 1e-3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _diff(a, b) -> float:
+    return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+
+def sharded_recon_step(fixture, cfg, dtype, batch, mesh, tag, smi):
+    """13a: `reconstruct_sharded` at phase 4's problem against the unsharded
+    fit, the decoder kernels it launched, and both times."""
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
+    from dsp_slam_rgbd_tpu_torch.parallel import sharded_recon
+    from dsp_slam_rgbd_tpu_torch.recon import optimizer as opt
+
+    def sharded():
+        return sharded_recon.reconstruct_sharded(fixture, cfg, batch, mesh, compute_dtype=dtype)
+
+    def unsharded():
+        return opt.reconstruct_objects_batched(
+            fixture, cfg, *(batch[k] for k in sharded_recon.BATCH_KEYS[:-1]),
+            code_init=batch["code_init"], compute_dtype=dtype)
+
+    mlp_sdf.reset_launch_counts()
+    got = sharded()
+    torch.cuda.synchronize()
+    launches = dict(mlp_sdf.LAUNCHES)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    own = [mlp_sdf.kernel_name(op, dtype) for op in ("mlp_sdf_value", "mlp_sdf_jacobian")]
+    others = [mlp_sdf.kernel_name(op, other) for op in ("mlp_sdf_value", "mlp_sdf_jacobian")]
+    want = unsharded()
+    case = {"tag": tag, "launches": launches, "pose_err": _diff(got.t_cam_obj, want.t_cam_obj),
+            "code_err": _diff(got.code, want.code), "good": int(got.is_good.sum()),
+            "ms": wall_ms(sharded, 3), "unsharded_ms": wall_ms(unsharded, 3)}
+    check(max(case["pose_err"], case["code_err"]) <= RECON_SHARD_TOL
+          and torch.equal(got.is_good, want.is_good), f"13a sharded recon {tag}: {case}")
+    check(all(launches[k] > 0 for k in own) and not any(launches[k] for k in others),
+          f"13a both {tag} kernels, and neither of the other type, launched under the mesh: "
+          f"{launches}")
+    print(f"phase 13a reconstruct_sharded {tag} at phase 4's problem on a (1, 1) mesh: pose "
+          f"{case['pose_err']:.3g}, code {case['code_err']:.3g} from the unsharded fit (tolerance "
+          f"{RECON_SHARD_TOL}), {case['good']} good; kernels launched {launches}; "
+          f"{case['ms']:.1f} ms, unsharded {case['unsharded_ms']:.1f} ms on {smi}", flush=True)
+    return case
+
+
+def sharded_ba_step(state, mesh, smi, center=500):
+    """13a: sharded local BA (the window at keyframe `center`) and sharded
+    PCG (the whole map) on phase 9b's corridor against their unsharded
+    counterparts."""
+    from dsp_slam_rgbd_tpu_torch.mapping import ba
+    from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
+    from dsp_slam_rgbd_tpu_torch.parallel import sharded_ba
+    from dsp_slam_rgbd_tpu_torch.tools import corridor_map as cm
+    from dsp_slam_rgbd_tpu_torch.weights import ba_problem_from_numpy, ba_problem_to_numpy
+
+    cam, group = cm.CAM, mesh.group("ray")
+    prob, _ = lm.build_local_ba_problem(state, center, max_kfs=10)
+    # one LM step in the window's own coordinates (9c's gauge: hundreds of metres
+    # from the map's origin, f32 rounding alone moves a step by ~1e-4)
+    local_prob = ba_problem_from_numpy(recentered(ba_problem_to_numpy(prob)), prob.pts.device)
+    step_s, _ = ba._assemble_and_solve(cam, sharded_ba.shard_problem(local_prob, mesh), 1e-3,
+                                       group)
+    step_u, _ = ba._assemble_and_solve(cam, local_prob, 1e-3)
+    got, want = sharded_ba.run_sharded_ba(cam, prob, mesh), ba.local_ba(cam, prob)
+    before = mean_reproj(ba, cam, prob)
+    local = {"step_pose_err": _diff(step_s.kf_pose, step_u.kf_pose),
+             "step_pts_err": _diff(step_s.pts, step_u.pts),
+             "pose_err": _diff(got.kf_pose, want.kf_pose), "pts_err": _diff(got.pts, want.pts),
+             "reproj_px_before": before,
+             "reproj_px_after": mean_reproj(ba, cam, prob._replace(kf_pose=got.kf_pose,
+                                                                 pts=got.pts)),
+             "ms": wall_ms(lambda: sharded_ba.run_sharded_ba(cam, prob, mesh), 2),
+             "unsharded_ms": wall_ms(lambda: ba.local_ba(cam, prob), 2)}
+    check(max(local["step_pose_err"], local["step_pts_err"]) <= 1e-4
+          and local["pose_err"] <= 1e-3 and local["pts_err"] <= 1e-2
+          and torch.equal(got.obs_mask, want.obs_mask)
+          and local["reproj_px_after"] < 0.7 * before, f"13a sharded local BA: {local}")
+    gprob, _ = lm.build_local_ba_problem(state, 0, 0, global_window=True)
+
+    def pcg_sharded():
+        return sharded_ba.global_ba_pcg_sharded(cam, gprob, mesh)
+
+    def pcg_unsharded():   # the same LM stages and CG depth without the mesh
+        return ba._two_stage(cam, gprob, 3, 7, 1e-3,
+                             lambda p, lam: ba._pcg_gn_step(cam, p, lam, 32))
+
+    got, want = pcg_sharded(), pcg_unsharded()
+    before = mean_reproj(ba, cam, gprob)
+    glob = {"pose_err": _diff(got.kf_pose, want.kf_pose), "pts_err": _diff(got.pts, want.pts),
+            "reproj_px_before": before,
+            "reproj_px_after": mean_reproj(ba, cam, gprob._replace(kf_pose=got.kf_pose,
+                                                                 pts=got.pts)),
+            "ms": wall_ms(pcg_sharded, 1), "unsharded_ms": wall_ms(pcg_unsharded, 1)}
+    check(glob["pose_err"] <= 2e-2 and glob["pts_err"] <= 5e-2
+          and glob["reproj_px_after"] < 0.5 * before, f"13a sharded PCG: {glob}")
+    print(f"phase 13a run_sharded_ba at keyframe {center} of the corridor: one LM step (the "
+          f"window recentered, 9c's gauge) pose "
+          f"{local['step_pose_err']:.3g} points {local['step_pts_err']:.3g} from the unsharded "
+          f"step, the whole run pose {local['pose_err']:.3g} points {local['pts_err']:.3g}; "
+          f"reprojection {before:.3f} -> {local['reproj_px_after']:.3f} px; {local['ms']:.1f} ms, "
+          f"unsharded {local['unsharded_ms']:.1f} ms; global_ba_pcg_sharded (3 + 7 LM "
+          f"iterations of 32 CG steps) pose {glob['pose_err']:.3g} points {glob['pts_err']:.3g}, "
+          f"reprojection {glob['reproj_px_before']:.3f} -> {glob['reproj_px_after']:.3f} px; "
+          f"{glob['ms']:.1f} ms, unsharded {glob['unsharded_ms']:.1f} ms on {smi}",
+          flush=True)
+    return {"local": local, "pcg": glob}
+
+
+def distributed_cli_step(dev, smi, tmp):
+    """13b: the command line with --distributed (one process, NCCL) over the
+    first 8 frames of 12a's directory, again with the system given a (1, 1)
+    mesh in that group (the sharded reconstruction and the ranks'
+    agreement checks from the mapping worker's thread and stream), and
+    without --distributed; all three under `keep_replicas_identical` (what
+    `initialize` turns on for more than one rank), each from cleared BA
+    capacity buckets -> (report, each distributed run's launches)."""
+    from unittest import mock
+
+    import torch.distributed as tdist
+
+    from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
+    from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
+    from dsp_slam_rgbd_tpu_torch.parallel import mesh as mesh_mod
+    from dsp_slam_rgbd_tpu_torch.parallel import sharded_recon
+    from dsp_slam_rgbd_tpu_torch.system import io as io_mod
+    from dsp_slam_rgbd_tpu_torch.system import slam
+    from dsp_slam_rgbd_tpu_torch.tools import run_slam
+    from dsp_slam_rgbd_tpu_torch.tools import sequence_dirs as sd
+
+    f32 = ("mlp_sdf_value_f32", "mlp_sdf_jacobian_f32")
+    paths = sd.write_kitti_objects(os.path.join(tmp, "kitti"))
+    seen, init = {}, slam.SLAMSystem.__init__
+    real_recon, real_agree = sharded_recon.reconstruct_sharded, dist.agree
+    under_mesh = {"calls": 0, "agreement_checks": 0, **{k: 0 for k in f32}}
+
+    def watched(mode):
+        def run(self, *a, **k):
+            init(self, *a, **k)
+            if mode == "mesh":   # what the system builds at N > 1 ranks, at one
+                self.recon_mesh = self.mapping._recon_mesh = mesh_mod.make_mesh(1, 1)
+            seen[mode] = {"backend": tdist.get_backend() if tdist.is_initialized() else None,
+                          "mesh": None if self.recon_mesh is None else self.recon_mesh.shape}
+        return run
+
+    def counted_recon(*a, **k):
+        before = dict(mlp_sdf.LAUNCHES)
+        out = real_recon(*a, **k)
+        under_mesh["calls"] += 1
+        for key in f32:
+            under_mesh[key] += mlp_sdf.LAUNCHES[key] - before[key]
+        return out
+
+    def counted_agree(*a, **k):
+        under_mesh["agreement_checks"] += 1
+        return real_agree(*a, **k)
+
+    runs, launches = {}, {}
+    was = torch.are_deterministic_algorithms_enabled()
+    dist.keep_replicas_identical()
+    try:
+        for mode in ("distributed", "mesh", "plain"):
+            out = os.path.join(tmp, f"out_{mode}")
+            argv = [paths["seq"], out, "--yaml", paths["yaml"], "--labels", paths["labels"],
+                    "--deepsdf", FIXTURE, "--max-frames", "8", "--device", dev.type]
+            if mode != "plain":
+                argv += ["--distributed", "--coordinator", f"localhost:{_free_port()}",
+                         "--num-processes", "1", "--process-id", "0"]
+            # every run starts from no BA capacity buckets (the module keeps the
+            # last ones per map shape, and other buckets pad the sums otherwise)
+            lm._bucket_memo.clear()
+            mlp_sdf.reset_launch_counts()
+            t0 = time.perf_counter()
+            with mock.patch.object(slam.SLAMSystem, "__init__", watched(mode)), \
+                    mock.patch.object(sharded_recon, "reconstruct_sharded", counted_recon), \
+                    mock.patch.object(dist, "agree", counted_agree):
+                res = run_slam.main(argv)
+            torch.cuda.synchronize()
+            if mode != "plain":
+                launches[mode] = dict(mlp_sdf.LAUNCHES)
+            runs[mode] = {"s": time.perf_counter() - t0, "summary": res["summary"],
+                          "traj": np.loadtxt(os.path.join(out, "CameraTrajectory.txt"), ndmin=2),
+                          "objects": io_mod.load_map_objects(os.path.join(out, "MapObjects.txt"))}
+    finally:
+        torch.use_deterministic_algorithms(was)
+    p = runs["plain"]
+    rep = {"joined": seen, "launches": launches, "under_mesh": under_mesh,
+           "s": {m: r["s"] for m, r in runs.items()}, "group_left": not tdist.is_initialized()}
+    for mode in ("distributed", "mesh"):
+        d = runs[mode]
+        same = d["traj"].shape == p["traj"].shape \
+            and list(d["objects"][0]) == list(p["objects"][0])
+        rep[mode] = {
+            "rows": len(d["traj"]), "objects": len(d["objects"][0]),
+            "traj_err": float(np.abs(d["traj"] - p["traj"]).max()) if same else float("inf"),
+            "objects_err": float(max(np.abs(np.asarray(a) - np.asarray(b)).max()
+                                     for a, b in zip(d["objects"][1:], p["objects"][1:])))
+            if same and len(d["objects"][0]) else float("inf")}
+        check(same and rep[mode]["rows"] == 8 and rep[mode]["objects"] > 0
+              and max(rep[mode]["traj_err"], rep[mode]["objects_err"]) <= 1e-5,
+              f"13b {mode}: CameraTrajectory.txt and MapObjects.txt as without --distributed: "
+              f"{rep}")
+        check(all(launches[mode][k] > 0 for k in f32),
+              f"13b both f32 kernels in the {mode} run: {launches}")
+    nccl = "nccl" if dev.type == "cuda" else "gloo"
+    check(seen["distributed"] == {"backend": nccl, "mesh": None}
+          and seen["mesh"] == {"backend": nccl, "mesh": {"obj": 1, "ray": 1}}
+          and seen["plain"]["backend"] is None and rep["group_left"],
+          f"13b --distributed joined an NCCL group (the second run with a (1, 1) mesh in it) "
+          f"and left it: {rep}")
+    check(under_mesh["calls"] > 0 and all(under_mesh[k] > 0 for k in f32)
+          and under_mesh["agreement_checks"] >= 2 * under_mesh["calls"] + 1,
+          f"13b the mesh run fitted its new objects through reconstruct_sharded, the f32 "
+          f"kernels launched inside it, and the ranks' agreement checks ran: {under_mesh}")
+    print(f"phase 13b run_slam --distributed --num-processes 1 (NCCL) over 8 frames of 12a's "
+          f"directory: {rep['distributed']['rows']} rows, {rep['distributed']['objects']} map "
+          f"objects; trajectory within {rep['distributed']['traj_err']:.3g}, objects within "
+          f"{rep['distributed']['objects_err']:.3g} of the run without --distributed; with a "
+          f"(1, 1) mesh: within {rep['mesh']['traj_err']:.3g} / {rep['mesh']['objects_err']:.3g}, "
+          f"{under_mesh['calls']} reconstruct_sharded calls launching "
+          f"{under_mesh['mlp_sdf_value_f32']} value + {under_mesh['mlp_sdf_jacobian_f32']} "
+          f"jacobian f32 kernels, {under_mesh['agreement_checks']} agreement checks (all three "
+          f"runs under keep_replicas_identical); kernels {launches}; "
+          + ", ".join(f"{m} {r['s']:.1f} s" for m, r in runs.items()) + f" on {smi}",
+          flush=True)
+    return rep, launches
+
+
+def fixture_object_map(dev):
+    """A map with one object of the fixture decoder's family 6 m ahead and
+    200 member points at 0.3-0.9 of its unit sphere (the map of
+    tests/test_torch_active.py's fixture case) -> (on the card, on the CPU)."""
+    from dsp_slam_rgbd_tpu_torch.mapping import map_state as ms
+
+    rng = np.random.default_rng(1)
+    st = ms.empty(max_kf=4, max_feat=8, max_pts=256, max_obj=2, code_len=64, device="cpu")
+    pose = torch.eye(4)
+    pose[:3, 3] = torch.tensor([0.5, 0.0, 6.0])
+    d = rng.standard_normal((200, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pts = torch.tensor(pose[:3, 3].numpy() + d * rng.uniform(0.3, 0.9, (200, 1)),
+                       dtype=torch.float32)
+    live = torch.arange(256) < 200
+    host = st._replace(
+        obj_pose=torch.stack([pose, torch.eye(4)]), obj_valid=torch.tensor([True, False]),
+        obj_scale=torch.ones(2),
+        obj_code=torch.tensor(rng.standard_normal((2, 64)) * 0.3, dtype=torch.float32),
+        pt_pos=torch.cat([pts, torch.zeros(56, 3)]), pt_valid=live,
+        pt_object=torch.where(live, 0, -1).to(torch.int32))
+    return type(host)(*(t.to(dev) for t in host)), host
+
+
+def nbv_card_vs_cpu(state, host, target, cam_t_wc, cam, fixture, dec_cpu, tag):
+    """13c: `nbv.generate` aimed at `target` on the card against the CPU ->
+    (report, the card run's decoder launches, the CPU's plan)."""
+    from dsp_slam_rgbd_tpu_torch.active import nbv
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
+
+    def card_nbv():
+        return nbv.generate(state, cam_t_wc, decoder=fixture, cam=cam, target=target)
+
+    mlp_sdf.reset_launch_counts()
+    got = card_nbv()
+    torch.cuda.synchronize()
+    launches = dict(mlp_sdf.LAUNCHES)
+    want = nbv.generate(host, cam_t_wc, decoder=dec_cpu, cam=cam, target=target)
+    scale = float(np.abs(want.rewards).max())
+    rep = {"map": tag, "target": got.target_obj, "best": int(np.argmax(got.rewards)),
+           "best_cpu": int(np.argmax(want.rewards)),
+           "reward_err": float(np.abs(got.rewards - want.rewards).max()), "reward_scale": scale,
+           "score": got.score, "score_cpu": want.score, "launches": launches,
+           "ms": wall_ms(card_nbv, 3)}
+    check(got.target_obj == want.target_obj and got.rewards.shape == (nbv.N_DIVIDE + 1,)
+          and rep["best"] == rep["best_cpu"] and rep["reward_err"] <= NBV_RTOL * scale
+          and abs(got.score - want.score) <= NBV_RTOL * max(abs(want.score), 1e-3),
+          f"13c NBV card vs CPU on {tag}: {rep}")
+    check(launches["mlp_sdf_value_f32"] > 0, f"13c NBV launched the f32 value kernel: {rep}")
+    print(f"phase 13c nbv.generate on {tag} (object {target}, the fixture decoder): best "
+          f"candidate {rep['best']} (CPU {rep['best_cpu']}), {nbv.N_DIVIDE + 1} rewards within "
+          f"{rep['reward_err']:.3g} of the CPU's (scale {scale:.4g}, tolerance {NBV_RTOL} "
+          f"relative), uncertainty {got.score:.6f} (CPU {want.score:.6f}); {rep['ms']:.1f} ms "
+          f"a call; kernels {launches}", flush=True)
+    return rep, launches, want
+
+
+def active_step(dev, smi, fixture, object_map):
+    """13c: next-best-view and RRT on phase 10's map, and the renderer over
+    its objects, each on the card against the port on the CPU."""
+    from dsp_slam_rgbd_tpu_torch.active import rrt
+    from dsp_slam_rgbd_tpu_torch.models import deepsdf
+    from dsp_slam_rgbd_tpu_torch.ops import lie
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
+    from dsp_slam_rgbd_tpu_torch.system import renderer
+    from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw
+
+    state, cfg, t_cw = object_map
+    dec_cpu = deepsdf.load_npz(FIXTURE, device="cpu")
+    host = type(state)(*(t.cpu() for t in state))
+    cam = cfg.cam
+    cam_t_wc = lie.inv_se3(t_cw).cpu().numpy()
+    launches = {}
+    # the NBV target: the valid object that owns the most map points (the
+    # synthetic objects carry no texture, so few map points, if any, fall inside one)
+    valid = np.nonzero(host.obj_valid.numpy())[0]
+    owner = host.pt_object.numpy()[host.pt_valid.numpy()]
+    members = {int(o): int((owner == o).sum()) for o in valid}
+    target = int(max(valid, key=lambda o: members[int(o)]))
+    rep, launches["nbv"], want = nbv_card_vs_cpu(state, host, target, cam_t_wc, cam, fixture,
+                                                 dec_cpu, "phase 10's map")
+    rep["members"] = members
+    # and an object whose member points sit near its surface (tests/test_torch_active.py's
+    # fixture case), where the SDF errors weigh in the rewards
+    small, small_host = fixture_object_map(dev)
+    rep["fixture_object"], launches["nbv_fixture"], _ = nbv_card_vs_cpu(
+        small, small_host, 0, np.eye(4, dtype=np.float32), cam, fixture, dec_cpu,
+        "an object of the fixture's family with 200 members")
+    start, goal = cam_t_wc[:3, 3], want.view_t_wc[:3, 3]
+    t0 = time.perf_counter()
+    path = rrt.plan(start, goal, rrt.obstacles_from_map(state)).path
+    rep["rrt_ms"] = (time.perf_counter() - t0) * 1e3
+    path_cpu = rrt.plan(start, goal, rrt.obstacles_from_map(host)).path
+    rep["rrt_waypoints"] = None if path is None else len(path)
+    check((path is None and path_cpu is None)
+          or (path is not None and path_cpu is not None and np.array_equal(path, path_cpu)),
+          f"13c RRT path on the card's obstacles equals the CPU's: {rep}")
+
+    # the renderer: every object composited at stride 16, one object at stride 8
+    K = torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]])
+    hw = (pw.KITTI.h, pw.KITTI.w)
+    mlp_sdf.reset_launch_counts()
+    t0 = time.perf_counter()
+    comp = renderer.render_map_objects(fixture, state, K, t_cw, hw, n_samples=16, stride=16)
+    torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t0) * 1e3
+    # one object alone: the valid one nearest the optical axis in front of the camera
+    centers = (t_cw.cpu() @ host.obj_pose[valid])[:, :3, 3].numpy()
+    ahead = centers[:, 2] > 0
+    off_axis = np.where(ahead, np.linalg.norm(centers[:, :2], axis=1) / np.maximum(
+        centers[:, 2], 1e-6), np.inf)
+    o = int(valid[int(np.argmin(off_axis))])
+    t_co = (t_cw @ state.obj_pose[o]).clone()
+    t_co[:3, :3] *= state.obj_scale[o]
+    one = renderer.render_object_depth(fixture, state.obj_code[o], t_co, K, hw, n_samples=16,
+                                       stride=8)
+    torch.cuda.synchronize()
+    launches["render"] = dict(mlp_sdf.LAUNCHES)
+    comp_cpu = renderer.render_map_objects(dec_cpu, host, K, t_cw.cpu(), hw, n_samples=16,
+                                           stride=16)
+    one_cpu = renderer.render_object_depth(dec_cpu, host.obj_code[o], t_co.cpu(), K, hw,
+                                           n_samples=16, stride=8)
+    cases = []
+    for name, d, h, d_c, h_c in (("composite", comp, comp > 0, comp_cpu, comp_cpu > 0),
+                                 ("object", one[0].cpu().numpy(), one[1].cpu().numpy(),
+                                  one_cpu[0].numpy(), one_cpu[1].numpy())):
+        both = h & h_c
+        cases.append({"image": name, "pixels": int(h.size), "hit": int(h.sum()),
+                      "hit_differs": float((h != h_c).mean()),
+                      "depth_err_m": float(np.abs(d - d_c)[both].max()) if both.any() else 0.0})
+    rep.update(render=cases, render_ms=render_ms, render_launches=launches["render"])
+    check(all(c["hit"] > 0 and c["hit_differs"] <= RENDER_HIT_SHARE
+              and c["depth_err_m"] <= RENDER_DEPTH_TOL for c in cases)
+          and launches["render"]["mlp_sdf_value_f32"] > 0, f"13c renderer card vs CPU: {rep}")
+    rep["render_object"] = o
+    print(f"phase 13c rrt.plan on phase 10's map: {rep['rrt_ms']:.1f} ms, "
+          f"{rep['rrt_waypoints']} waypoints, equal to the CPU's; member points by object "
+          f"{members}; renderer: " + "; ".join(
+              f"{c['image']} {c['pixels']} px, {c['hit']} hit, hit masks differ at "
+              f"{c['hit_differs']:.4%}, depth within {c['depth_err_m']:.3g} m" for c in cases)
+          + f" of the CPU's; composite {render_ms:.1f} ms, kernels {launches['render']} on {smi}",
+          flush=True)
+    return rep, launches
+
+
+def scale_out_phase(dev, smi, fixture, recon_args, corridor, object_map):
+    """Phase 13 (see the module docstring) -> (the report's "scale_out" entry,
+    each kernel's launches on this phase's paths)."""
+    import torch.distributed as tdist
+
+    from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
+    from dsp_slam_rgbd_tpu_torch.parallel import mesh as mesh_mod
+    from dsp_slam_rgbd_tpu_torch.parallel import sharded_recon
+    from dsp_slam_rgbd_tpu_torch.recon import optimizer as opt
+
+    t_phase = time.perf_counter()
+    rep = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.initialize(f"file://{tmp}/rendezvous", 1, 0, device=dev)
+        try:
+            rep["backend"] = tdist.get_backend()
+            mesh = mesh_mod.make_mesh(1, 1)
+            batch = dict(zip(sharded_recon.BATCH_KEYS[:-1], recon_args))
+            batch["code_init"] = torch.zeros(recon_args[0].shape[0], 64, device=dev)
+            rep["recon"] = [
+                sharded_recon_step(fixture, opt.ReconConfig.gpu_fast(num_iterations=ITERS),
+                                   opt.FAST_DTYPE, batch, mesh, "gpu_fast bf16", smi),
+                sharded_recon_step(fixture, opt.ReconConfig(), torch.float32, batch, mesh,
+                                   "ReconConfig() f32", smi)]
+            rep["ba"] = sharded_ba_step(corridor, mesh, smi)
+        finally:
+            tdist.destroy_process_group()
+        rep["cli"], cli = distributed_cli_step(dev, smi, tmp)
+    rep["active"], act = active_step(dev, smi, fixture, object_map)
+    # each path's own counts, read just after it (each reset just before it)
+    paths = {"13a gpu_fast bf16": rep["recon"][0]["launches"],
+             "13a ReconConfig() f32": rep["recon"][1]["launches"],
+             "13b --distributed": cli["distributed"], "13b (1, 1) mesh": cli["mesh"],
+             "13c nbv on phase 10's map": act["nbv"],
+             "13c nbv on a fixture object": act["nbv_fixture"], "13c renderer": act["render"]}
+    rep["launches_by_path"] = paths
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 13 launches by path {paths}; phase 13 took {rep['phase_s']:.0f} s; "
+          f"scaling at N >= 2 ranks not measured (one card)", flush=True)
+    return rep, paths
 
 
 def main(argv=None):
@@ -2376,7 +2909,9 @@ def main(argv=None):
     out = fit()
     torch.cuda.synchronize()
     launches = dict(mlp_sdf.LAUNCHES)
-    check(all(v > 0 for v in launches.values()), f"both kernels on the main path: {launches}")
+    check(launches["mlp_sdf_value"] > 0 and launches["mlp_sdf_jacobian"] > 0
+          and launches["mlp_sdf_value_f32"] == launches["mlp_sdf_jacobian_f32"] == 0,
+          f"both bf16 kernels, and no f32 one, on the main path: {launches}")
     check(bool(out.is_good.all()), f"every fit is_good: {out.is_good.tolist()}")
     check(bool(torch.isfinite(out.t_cam_obj).all()), "finite poses")
     T_fit = out.t_cam_obj.cpu().numpy()
@@ -2527,14 +3062,17 @@ def main(argv=None):
     report["tracking"] = tracking_phase(dev, smi)
     # ---- 9b / 9c. bundle adjustment at KITTI-00 scale, and card vs CPU
     t0 = time.perf_counter()
-    report["ba_scale"] = ba_scale_phase(dev, smi)
+    report["ba_scale"], corridor = ba_scale_phase(dev, smi)
     print(f"phase 9b-9c took {time.perf_counter() - t0:.0f} s", flush=True)
     # ---- 10. the object stage in the SLAM loop (f32 kernels), and 10c mono
-    report["objects"], kernels_f32 = objects_phase(dev, smi, mem_bw)
+    report["objects"], kernels_f32, object_map = objects_phase(dev, smi, mem_bw)
     # ---- 11. monocular initialization and loop closing (no kernel of the port)
     report["loop"] = loop_phase(dev, smi)
     # ---- 12. the system loop and the command line (f32 kernels in the worker)
     report["system"] = system_phase(dev, smi)
+    # ---- 13. the scale-out tier (NCCL, world size 1) and active mapping
+    report["scale_out"], paths13 = scale_out_phase(dev, smi, fixture, args, corridor,
+                                                      object_map)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "rows", "dtype")
@@ -2552,6 +3090,10 @@ def main(argv=None):
              # the main path's other Jacobian launch size (the SDF term)
              small={k: v for k, v in t_jac_sdf.items() if k in keys}),
     ] + kernels_f32
+    # `launches`: the kernel's main path (phase 4 for bf16, phase 10 for f32);
+    # beside it, its count on each path of phase 13
+    for k in kernels:
+        k["launches_by_path"] = {path: n[k["name"]] for path, n in paths13.items()}
     if opts.report:
         os.makedirs(os.path.dirname(os.path.abspath(opts.report)), exist_ok=True)
         with open(opts.report, "w") as f:

@@ -5,7 +5,7 @@ Hopper GPU.  It mirrors the JAX package's module paths so each counterpart
 is easy to find; the decoder's two fused TPU kernels are hand-written CUDA
 for sm_90a under `csrc/`, built at first use (`ops/cuda/build.py`).
 
-Layout (ported so far):
+Layout (every module of the JAX package has its counterpart):
   ops/       Lie groups, robust norms, camera; ops/cuda: the fused decoder kernels
   models/    DeepSDF decoder (nn.Module) + mesh extraction
   recon/     object shape+pose Gauss-Newton optimizer (the FLOPs core)
@@ -18,7 +18,11 @@ Layout (ported so far):
   system/    detections, label files, the object stage, the mono object
              pipeline, the keyframe MappingStage with loop closing, and
              slam.py's monocular map insertion and relocalization candidates
-  tools/     single-frame reconstruction CLI and the synthetic worlds
+  parallel/  the scale-out tier: an (obj, ray) mesh over torch.distributed
+             ranks, sharded reconstruction, local BA and PCG
+  active/    next-best-view scoring and RRT path planning
+  tools/     the command line, single-frame reconstruction and the
+             synthetic worlds
   entry.py   the flagship reconstruction step with example inputs
 
 Entry points take a `device` and default to "cuda"; without a card they

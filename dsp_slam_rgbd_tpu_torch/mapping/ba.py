@@ -18,6 +18,13 @@ solves by `linalg.solve_ex`/`inv_ex`, non-finite steps zeroed, and no host
 read anywhere.  Normal-equation assembly scatters with `index_add_`: on
 the card its f32 summation order changes from run to run, so two runs (or
 the card and the CPU) agree to a tolerance, not bit for bit.
+
+Sharded edges (`parallel/sharded_ba.py`): with `group=`, the edge arrays
+of the problem are this rank's share and the state is replicated.  Every
+edge-derived sum crosses the group: one all_reduce merges the assembled
+blocks (and, in PCG, one more the Schur corrections, one per CG matvec
+side, one the back-substitution), the robust cost is summed over it, and
+every rank takes the same step.  Gating stays edgewise and shard-local.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 
 from dsp_slam_rgbd_tpu_torch.ops import camera as cam_ops
 from dsp_slam_rgbd_tpu_torch.ops import lie
+from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -181,10 +189,11 @@ def _hpp_inverse(Hpp, pt_live):
     return torch.linalg.inv_ex(Hpp_d)[0]
 
 
-def _assemble_and_solve(cam, prob: BAProblem, damping):
+def _assemble_and_solve(cam, prob: BAProblem, damping, group=None):
     """One GN step over (K+O) pose blocks with marginalized points.
     `damping`: the LM λ (a float or a 0-d tensor).  Returns (stepped
-    problem, cost at the input state)."""
+    problem, cost at the input state).  `group`: the ranks whose edge
+    shards are summed (one all_reduce of the assembled blocks)."""
     K = prob.kf_pose.shape[0]
     P = prob.pts.shape[0]
     O = prob.obj_pose.shape[0]
@@ -211,6 +220,11 @@ def _assemble_and_solve(cam, prob: BAProblem, damping):
     okf, oobj, ko, chi2_o = _add_object_blocks(prob, Hcc, bc)
     S = _scatter_add(B * B, torch.cat([okf * B + oobj, oobj * B + okf]),
                      torch.cat([ko, ko.transpose(-1, -2)])).view(B, B, 6, 6)
+    live = prob.obs_mask & prob.pt_valid[obs_pt] & prob.kf_valid[obs_kf]
+    cost = torch.sum(torch.where(live, chi2, 0.0)) \
+        + torch.sum(torch.where(prob.oobs_mask, chi2_o, 0.0))
+    if group is not None:
+        Hcc, bc, Hpp, bp, Hcp, S, cost = dist.psum((Hcc, bc, Hpp, bp, Hcp, S, cost), group)
 
     # marginalize points: S −= Hcp Hpp⁻¹ Hcpᵀ ; bc −= Hcp Hpp⁻¹ bp, with the
     # (B·6)² product as one f32 matmul in the flattened [block, row] layout
@@ -237,10 +251,6 @@ def _assemble_and_solve(cam, prob: BAProblem, damping):
     # back-substitute points: dp = Hpp⁻¹ (bp − Hcpᵀ dc)
     Hcp_dc = torch.einsum("bpik,bi->pk", Hcp, dx)
     dp = _point_step(Hpp_inv, bp - Hcp_dc, pt_live)
-
-    live = prob.obs_mask & prob.pt_valid[obs_pt] & prob.kf_valid[obs_kf]
-    cost = torch.sum(torch.where(live, chi2, 0.0)) \
-        + torch.sum(torch.where(prob.oobs_mask, chi2_o, 0.0))
     return _apply_step(prob, dx, dp), cost
 
 
@@ -262,8 +272,9 @@ def _gate(cam, prob: BAProblem):
     return prob._replace(obs_mask=obs_mask, oobs_mask=oobs_mask)
 
 
-def _robust_cost(cam, prob: BAProblem):
-    """Huber-robustified total cost — the LM acceptance metric."""
+def _robust_cost(cam, prob: BAProblem, group=None):
+    """Huber-robustified total cost — the LM acceptance metric (summed
+    over the edge shards of `group`)."""
     res, _, _, _ = _reproj_terms(cam, prob)
     chi2 = torch.sum(res * res, dim=-1) * prob.obs_info
     en = torch.sqrt(torch.clamp_min(chi2, 1e-12))
@@ -279,18 +290,19 @@ def _robust_cost(cam, prob: BAProblem):
                         2.0 * OBJ_HUBER * en_o - OBJ_HUBER * OBJ_HUBER)
     live_o = prob.oobs_mask & prob.obj_valid[prob.oobs_obj.long()] \
         & prob.kf_valid[prob.oobs_kf.long()]
-    return torch.sum(torch.where(live, rho, 0.0)) + torch.sum(torch.where(live_o, rho_o, 0.0))
+    cost = torch.sum(torch.where(live, rho, 0.0)) + torch.sum(torch.where(live_o, rho_o, 0.0))
+    return cost if group is None else dist.psum([cost], group)[0]
 
 
-def _lm_run(cam, prob: BAProblem, n: int, damping: float, step_fn):
+def _lm_run(cam, prob: BAProblem, n: int, damping: float, step_fn, group=None):
     """n Levenberg-Marquardt iterations: a step is accepted only if the
     Huber cost does not rise (λ halves), otherwise the state is kept and λ
     grows 8×.  Returns (problem, cost)."""
     lam = torch.full((), damping, dtype=torch.float32, device=prob.kf_pose.device)
-    cost = _robust_cost(cam, prob)
+    cost = _robust_cost(cam, prob, group)
     for _ in range(n):
         cand, _ = step_fn(prob, lam)
-        cost_c = _robust_cost(cam, cand)
+        cost_c = _robust_cost(cam, cand, group)
         accept = cost_c <= cost
         prob = BAProblem(*[torch.where(accept, a, b) for a, b in zip(cand, prob)])
         lam = torch.where(accept, torch.clamp_min(lam * 0.5, 1e-5),
@@ -300,22 +312,24 @@ def _lm_run(cam, prob: BAProblem, n: int, damping: float, step_fn):
 
 
 def _two_stage(cam, prob: BAProblem, stage1_iters: int, stage2_iters: int,
-               damping: float, step_fn) -> BAResult:
-    prob, _ = _lm_run(cam, prob, stage1_iters, damping, step_fn)
+               damping: float, step_fn, group=None) -> BAResult:
+    prob, _ = _lm_run(cam, prob, stage1_iters, damping, step_fn, group)
     prob = _gate(cam, prob)
-    prob, cost = _lm_run(cam, prob, stage2_iters, damping, step_fn)
+    prob, cost = _lm_run(cam, prob, stage2_iters, damping, step_fn, group)
     prob = _gate(cam, prob)
     return BAResult(prob.kf_pose, prob.pts, prob.obj_pose, prob.obs_mask,
                     prob.oobs_mask, cost)
 
 
 def local_ba(cam, prob: BAProblem, stage1_iters: int = 5,
-             stage2_iters: int = 10, damping: float = 1e-3) -> BAResult:
+             stage2_iters: int = 10, damping: float = 1e-3, group=None) -> BAResult:
     """Two-stage robust BA (reference `LocalJointBundleAdjustment`
     :309-771: 5 iterations → gate outliers → 10 iterations → final gate),
-    each stage true Levenberg-Marquardt on the dense reduced system."""
+    each stage true Levenberg-Marquardt on the dense reduced system.
+    `group`: the ranks whose edge shards `prob` holds (the result's edge
+    masks are then this rank's share)."""
     return _two_stage(cam, prob, stage1_iters, stage2_iters, damping,
-                      lambda p, lam: _assemble_and_solve(cam, p, lam))
+                      lambda p, lam: _assemble_and_solve(cam, p, lam, group), group)
 
 
 def global_ba(cam, prob: BAProblem, n_iters: int = 20, damping: float = 1e-3) -> BAResult:
@@ -335,9 +349,19 @@ def global_ba(cam, prob: BAProblem, n_iters: int = 20, damping: float = 1e-3) ->
 # ---------------------------------------------------------------------------
 
 
-def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int):
+def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None):
     """One GN step of the reduced (pose+object) system via PCG.  Returns
-    (stepped problem, cost at the input state)."""
+    (stepped problem, cost at the input state).
+
+    `group` (JAX `axis`, `mapping/ba.py:345-356`): the edge arrays of
+    `prob` are this rank's share, and every edge-derived sum crosses the
+    group: one all_reduce merges the normal-equation blocks, one the
+    edgewise Schur corrections, two each CG matvec's coupling terms (the
+    point side, then the pose side), one the back-substitution and one
+    the cost.  Pose and point state stay replicated."""
+    def ps(*ts):
+        return ts if group is None else dist.psum(ts, group)
+
     K = prob.kf_pose.shape[0]
     P = prob.pts.shape[0]
     O = prob.obj_pose.shape[0]
@@ -360,19 +384,21 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int):
     bp = _scatter_add(P, obs_pt, -gp)
 
     okf, oobj, ko, chi2_o = _add_object_blocks(prob, Hcc, bc)
+    Hcc, bc, Hpp, bp = ps(Hcc, bc, Hpp, bp)
 
     pt_live = prob.pt_valid
     Hpp_inv = _hpp_inverse(Hpp, pt_live)
 
-    # reduced RHS: bc − Hcp Hpp⁻¹ bp, edgewise
+    # reduced RHS: bc − Hcp Hpp⁻¹ bp, and the exact Schur block diagonal
+    # (one edge per (kf, pt) pair), both edgewise
     hb = torch.einsum("pij,pj->pi", Hpp_inv, bp)
-    bc_red = bc - _scatter_add(B, obs_kf, torch.einsum("nij,nj->ni", Ccp, hb[obs_pt]))
+    contrib = torch.einsum("nij,njk,nlk->nil", Ccp, Hpp_inv[obs_pt], Ccp)
+    corr_b, corr_S = ps(_scatter_add(B, obs_kf, torch.einsum("nij,nj->ni", Ccp, hb[obs_pt])),
+                        _scatter_add(B, obs_kf, contrib))
+    bc_red = bc - corr_b
 
     free = ~_fixed_blocks(prob)
-
-    # exact Schur block diagonal (one edge per (kf, pt) pair → edgewise)
-    contrib = torch.einsum("nij,njk,nlk->nil", Ccp, Hpp_inv[obs_pt], Ccp)
-    Sdiag0 = Hcc - _scatter_add(B, obs_kf, contrib)
+    Sdiag0 = Hcc - corr_S
     dvec = torch.clamp_min(torch.diagonal(Sdiag0, dim1=-2, dim2=-1), 1e-6)   # (B, 6)
     damp_vec = damping * dvec + 1e-4
     eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
@@ -382,11 +408,12 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int):
     def matvec(x):
         x = torch.where(free[:, None], x, 0.0)
         y = torch.einsum("bij,bj->bi", Hcc, x)
-        u = _scatter_add(P, obs_pt, torch.einsum("nij,ni->nj", Ccp, x[obs_kf]))
+        u, = ps(_scatter_add(P, obs_pt, torch.einsum("nij,ni->nj", Ccp, x[obs_kf])))
         v = torch.einsum("pij,pj->pi", Hpp_inv, u)
         y_edge = _scatter_add(B, obs_kf, -torch.einsum("nij,nj->ni", Ccp, v[obs_pt]))
         y_edge = y_edge.index_add_(0, okf, torch.einsum("mij,mj->mi", ko, x[oobj]))
         y_edge = y_edge.index_add_(0, oobj, torch.einsum("mij,mi->mj", ko, x[okf]))
+        y_edge, = ps(y_edge)
         y = y + y_edge + damp_vec * x
         return torch.where(free[:, None], y, 0.0)
 
@@ -409,12 +436,12 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int):
     dx = torch.where(torch.isfinite(x), x, 0.0)
 
     # back-substitute points: dp = Hpp⁻¹ (bp − Hcpᵀ dc), edgewise
-    u = _scatter_add(P, obs_pt, torch.einsum("nij,ni->nj", Ccp, dx[obs_kf]))
+    u, = ps(_scatter_add(P, obs_pt, torch.einsum("nij,ni->nj", Ccp, dx[obs_kf])))
     dp = _point_step(Hpp_inv, bp - u, pt_live)
 
     live = prob.obs_mask & prob.pt_valid[obs_pt] & prob.kf_valid[obs_kf]
-    cost = torch.sum(torch.where(live, chi2, 0.0)) \
-        + torch.sum(torch.where(prob.oobs_mask, chi2_o, 0.0))
+    cost, = ps(torch.sum(torch.where(live, chi2, 0.0))
+               + torch.sum(torch.where(prob.oobs_mask, chi2_o, 0.0)))
     return _apply_step(prob, dx, dp), cost
 
 

@@ -15,6 +15,10 @@ Two ways to query the decoder:
     the cars/chairs_64 layout they go through the fused kernels of
     `ops/cuda/mlp_sdf.py` (on a CPU tensor, their plain versions); any
     other architecture takes the plain sweep.  A dispatch on architecture.
+
+`AnalyticSdfDecoder` stands in for the MLP with a closed-form SDF (the
+JAX package's `AnalyticSdfSpec`, `models/deepsdf.py:58,96`): the same
+methods, its Jacobian from `torch.func`, no kernel.
 """
 from __future__ import annotations
 
@@ -220,6 +224,57 @@ class DeepSDFDecoder(nn.Module):
                 self.packed(compute_dtype), code, xyz, compute_dtype,
                 self.tiles(compute_dtype, jacobian=True))
         return self.sdf_and_input_jacobian(code, xyz, compute_dtype)
+
+
+class AnalyticSdfSpec(NamedTuple):
+    """An analytic decoder's spec: its code length and SDF callable."""
+    latent_size: int
+    fn: object
+
+
+class AnalyticSdfDecoder(nn.Module):
+    """A closed-form SDF in place of the MLP decoder: `fn(code, xyz)` maps
+    codes (…, L) and points (…, 3) of one leading shape to SDF values (…),
+    in torch ops that `torch.func.vmap` can batch.  The reconstruction,
+    object, mono and renderer code call it as they call `DeepSDFDecoder`;
+    it computes in f32 whatever the compute dtype, and no kernel route
+    reaches it."""
+
+    fused = False
+
+    def __init__(self, fn, latent_size: int):
+        super().__init__()
+        self.spec = AnalyticSdfSpec(latent_size, fn)
+        self.register_buffer("_anchor", torch.zeros(0))   # carries the device
+
+    @property
+    def device(self) -> torch.device:
+        return self._anchor.device
+
+    def _split(self, inputs):
+        L = self.spec.latent_size
+        return inputs[..., :L], inputs[..., L:]
+
+    def apply(self, inputs: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+        """inputs (…, L+3) [code | xyz] -> sdf (…,)."""
+        return self.spec.fn(*self._split(inputs.float()))
+
+    forward = apply
+
+    def sdf(self, code, xyz, compute_dtype=torch.float32) -> torch.Tensor:
+        return self.apply(_rows(code, xyz), compute_dtype)
+
+    def sdf_and_input_jacobian(self, code, xyz, compute_dtype=torch.float32):
+        """(sdf (…,), d sdf/d[code, xyz] (…, L+3)): one gradient per row,
+        vmapped over the rows (`torch.func`)."""
+        inputs = _rows(code, xyz).float()
+        flat = inputs.reshape(-1, inputs.shape[-1])
+        grad, val = torch.func.vmap(torch.func.grad_and_value(
+            lambda row: self.spec.fn(*self._split(row))))(flat)
+        return val.reshape(inputs.shape[:-1]), grad.reshape(inputs.shape)
+
+    query = sdf
+    query_with_jacobian = sdf_and_input_jacobian
 
 
 def init_decoder(spec: DecoderSpec = DecoderSpec(), seed: int = 0,

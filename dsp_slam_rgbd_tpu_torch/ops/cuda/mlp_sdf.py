@@ -65,8 +65,17 @@ F32_BACKWARD_FLOATS = (D // F32_BLOCK) * F32_BWD_ROWS * F32_BLOCK + D * IN_PAD
 # CTAs of a cluster sharing it, each computing 512 / c columns)
 F32_TILINGS = ((32, 1), (64, 2), (32, 2))
 
-# launches per kernel since the last reset (the plain versions count none)
-LAUNCHES = {"mlp_sdf_value": 0, "mlp_sdf_jacobian": 0}
+# launches per kernel (op x compute dtype: the bf16 kernels carry the bare
+# op's name, the f32 ones "_f32") since the last reset; the plain versions
+# count none
+LAUNCHES = {"mlp_sdf_value": 0, "mlp_sdf_jacobian": 0, "mlp_sdf_value_f32": 0,
+            "mlp_sdf_jacobian_f32": 0}
+
+
+def kernel_name(op: str, compute_dtype) -> str:
+    """The `LAUNCHES` key of op "mlp_sdf_value" / "mlp_sdf_jacobian" in
+    compute_dtype."""
+    return op if compute_dtype == torch.bfloat16 else op + "_f32"
 
 
 def reset_launch_counts() -> None:
@@ -490,7 +499,7 @@ def sdf_value_fused(wb, code, xyz, compute_dtype=torch.float32, tiles=None):
                                 W.data_ptr(), b.data_ptr(), int(bf16), tiles.data_ptr(),
                                 sdf.data_ptr(), _stream())
         _raise_on(lib, err, "mlp_sdf_value")
-        LAUNCHES["mlp_sdf_value"] += 1
+        LAUNCHES[kernel_name("mlp_sdf_value", compute_dtype)] += 1
     return sdf.reshape(lead)
 
 
@@ -532,5 +541,5 @@ def sdf_and_input_jacobian_fused(wb, code, xyz, compute_dtype=torch.float32, til
                                    None if masks_out is None else masks_out.data_ptr(),
                                    _stream())
         _raise_on(lib, err, "mlp_sdf_jacobian")
-        LAUNCHES["mlp_sdf_jacobian"] += 1
+        LAUNCHES[kernel_name("mlp_sdf_jacobian", compute_dtype)] += 1
     return sdf.reshape(lead), grad.reshape(lead + (IN_DIM,))

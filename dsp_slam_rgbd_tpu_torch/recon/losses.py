@@ -9,6 +9,12 @@ each decoder query is one launch over all of their rows.
 
 Variable-length gathers are masks or fixed-capacity compactions built with
 a cumulative sum and a scatter (no `torch.nonzero`, which syncs the host).
+
+`compute_render_loss(group=...)` splits the decoder rows over the ranks of
+a process group (the mesh's `ray` axis, `parallel/mesh.py`): each rank
+queries its share of the samples and the values are gathered, so every
+rank compacts and selects over the object's whole sample set; then each
+rank takes its share of the compacted gradient points.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from dsp_slam_rgbd_tpu_torch.ops import lie
+from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
 
 
 def sdf_to_occupancy(sdf: torch.Tensor, th: float = 0.01) -> torch.Tensor:
@@ -40,6 +47,17 @@ def compact_indices(mask: torch.Tensor, size: int, fill_value: int) -> torch.Ten
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (…, P, C), idx (…, K) -> (…, K, C)."""
     return torch.gather(x, -2, idx[..., None].expand(idx.shape + x.shape[-1:]))
+
+
+def _query_split(decoder, code, pts, dtype, group):
+    """`decoder.query` over pts (…, n, 3): each rank of `group` queries its
+    share of the n rows, and every rank gets all n values."""
+    if group is None:
+        return decoder.query(code, pts, dtype)
+    n = pts.shape[-2]
+    start, stop, n_pad = dist.shard_range(n, group)
+    local = dist.pad_rows(pts, n_pad, -2).narrow(-2, start, stop - start)
+    return dist.gather_rows(decoder.query(code, local, dtype), group, -1)[..., :n]
 
 
 def _value_dtype(decoder, fast_value_pass: bool, compute_dtype):
@@ -113,7 +131,7 @@ def compute_render_loss(decoder, ray_dirs, ray_mask, depth_obs, t_obj_cam,
                         max_valid_samples: int = 8192,
                         fast_value_pass: bool = False,
                         compute_dtype=torch.float32,
-                        d_max=None) -> RenderLossResult:
+                        d_max=None, group=None) -> RenderLossResult:
     """Depth-rendering term via ray termination probabilities.
 
     Samples R rays × M depths; occupancy o = ramp(SDF) inside the unit
@@ -128,7 +146,9 @@ def compute_render_loss(decoder, ray_dirs, ray_mask, depth_obs, t_obj_cam,
     then compacted to `max_valid_samples` in-sphere samples first), or
     (…, R, M) per-ray chord samples (`chord_sample_depths`).  `d_max`
     (scalar or (…,)): the far plane of the background bin; derived from
-    the samples when None.
+    the samples when None.  `group`: a process group whose ranks split the
+    decoder rows; the K gradient rows (jac_pose, jac_code, res, mask) are
+    then this rank's share of them, the other fields whole.
     """
     R = ray_dirs.shape[-2]
     batch = ray_dirs.shape[:-2]
@@ -154,14 +174,15 @@ def compute_render_loss(decoder, ray_dirs, ray_mask, depth_obs, t_obj_cam,
     val_dtype = _value_dtype(decoder, fast_value_pass, compute_dtype)
     if chord_mode:
         # chord samples are in-support by construction: dense value pass
-        sdf_vals = decoder.query(code, pts_obj, val_dtype).reshape(batch + (R, M))
+        sdf_vals = _query_split(decoder, code, pts_obj, val_dtype, group) \
+            .reshape(batch + (R, M))
     else:
         # global linspace: compact in-sphere samples to a static capacity;
         # samples past it count as empty space
         flat_valid = valid.reshape(batch + (R * M,))
         idx_val = compact_indices(flat_valid, max_valid_samples, R * M)
         pts_val = _gather_rows(pts_obj, torch.clamp_max(idx_val, R * M - 1))
-        sdf_val = decoder.query(code, pts_val, val_dtype)
+        sdf_val = _query_split(decoder, code, pts_val, val_dtype, group)
         sdf_vals = torch.zeros(batch + (R * M + 1,), device=ray_dirs.device) \
             .scatter(-1, idx_val, sdf_val)[..., :-1].reshape(batch + (R, M))
         covered = torch.zeros(batch + (R * M + 1,), dtype=torch.bool,
@@ -192,6 +213,10 @@ def compute_render_loss(decoder, ray_dirs, ray_mask, depth_obs, t_obj_cam,
     flat_mask = with_grad.reshape(batch + (R * M,))
     idx = compact_indices(flat_mask, max_grad_points, 0)
     live = torch.gather(flat_mask, -1, idx)
+    if group is not None:   # this rank's share of the K gradient rows
+        start, stop, k_pad = dist.shard_range(max_grad_points, group)
+        idx = dist.pad_rows(idx, k_pad, -1).narrow(-1, start, stop - start)
+        live = dist.pad_rows(live, k_pad, -1, False).narrow(-1, start, stop - start)
     pts_sel = _gather_rows(pts_obj, idx)                                 # (…, K, 3)
     de_ds_sel = torch.gather(de_ds.reshape(batch + (R * M,)), -1, idx)
     res_sel = torch.gather(res_ray, -1, idx // M)

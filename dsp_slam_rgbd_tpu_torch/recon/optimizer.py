@@ -17,6 +17,13 @@ Counterpart of `dsp_slam_rgbd_tpu/recon/optimizer.py` (reference
 Failure modes (NaN loss, singular solve, too few render samples) are a
 per-object `good` tensor that freezes further updates; nothing in the
 loop reads a value back to the host.
+
+With a process group (`group=`, the mesh's `ray` axis) the ranks split an
+object's decoder rows: the surface points, the render term's samples
+(values gathered, so every rank selects and compacts over the whole ray
+set) and its gradient points.  Each rank sums JᵀJ, Jᵀr, Σr² and the live
+count over its rows; one all_reduce adds them up and the normalization
+follows, so every rank solves the same system.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from dsp_slam_rgbd_tpu_torch.ops import lie, robust
+from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
 from dsp_slam_rgbd_tpu_torch.recon import losses
 
 
@@ -106,9 +114,11 @@ def select_active_rays(res_ray, min_abs, fg_mask, ray_mask, th: float,
 
 def _gn_iteration(decoder, cfg: ReconConfig, compute_dtype, carry, rays,
                   ray_mask, depth_obs, fg_mask, pts_surface, pts_mask,
-                  n_samples: int):
+                  n_samples: int, group=None):
     """One batched GN iteration over the given ray set at the given sample
-    density.  carry = (t_obj_cam, code, good, loss, res_ray, min_abs)."""
+    density.  carry = (t_obj_cam, code, good, loss, res_ray, min_abs).
+    `group`: the ranks that split the decoder rows (pts_surface is this
+    rank's share)."""
     t_obj_cam, code, good, loss_prev = carry[:4]
     B, L = code.shape
     t_co = lie.inv_sim3(t_obj_cam)
@@ -125,28 +135,40 @@ def _gn_iteration(decoder, cfg: ReconConfig, compute_dtype, carry, rays,
 
     sdf_t = losses.compute_sdf_loss(decoder, pts_surface, pts_mask, t_obj_cam,
                                     code, compute_dtype)
-    rr_sdf, sdf_loss, _ = robust.robust_residuals(sdf_t.res, cfg.b2, sdf_t.mask)
+    rr_sdf = robust.robust_residuals(sdf_t.res, cfg.b2, sdf_t.mask)[0]
     ren = losses.compute_render_loss(
         decoder, rays, ray_mask & hit, depth_eff, t_obj_cam, sampled, code,
         th=cfg.cut_off_threshold, max_grad_points=cfg.max_grad_points,
         max_valid_samples=cfg.max_valid_samples,
         fast_value_pass=cfg.fast_value_pass, compute_dtype=compute_dtype,
-        d_max=d_max)   # same far plane as depth_eff: background residual 0
-    rr_ren, ren_loss, _ = robust.robust_residuals(ren.res, cfg.b1, ren.mask)
+        d_max=d_max,   # same far plane as depth_eff: background residual 0
+        group=group)
+    rr_ren = robust.robust_residuals(ren.res, cfg.b1, ren.mask)[0]
     drot, res_rot = losses.compute_rotation_loss_sim3(t_obj_cam)
-    loss = cfg.k1 * ren_loss + cfg.k2 * sdf_loss
 
     # normal equations (reference :163-186): the Huber weight scales the
-    # residual in b only; H uses the raw J, as the reference does
+    # residual in b only; H uses the raw J, as the reference does.  Per
+    # term the sums over the rows (JᵀJ, Jᵀr, Σr², live count), added up
+    # over the group, then normalized by the count
+    sums = []
+    for jac_pose, jac_code, mask, rr in (
+            (sdf_t.jac_pose, sdf_t.jac_code, sdf_t.mask, rr_sdf),
+            (ren.jac_pose, ren.jac_code, ren.mask, rr_ren)):
+        J = torch.where(mask[..., None], torch.cat([jac_pose, jac_code], -1), 0.0)
+        sums += [J.transpose(1, 2) @ J,
+                 (J.transpose(1, 2) @ torch.where(mask, rr, 0.0)[..., None])[..., 0],
+                 torch.sum(rr * rr, dim=-1), mask.sum(-1)]
+    sums = dist.psum(sums, group)
     H = torch.zeros(B, 7 + L, 7 + L, device=code.device)
     b = torch.zeros(B, 7 + L, device=code.device)
-    for k, jac_pose, jac_code, mask, rr in (
-            (cfg.k2, sdf_t.jac_pose, sdf_t.jac_code, sdf_t.mask, rr_sdf),
-            (cfg.k1, ren.jac_pose, ren.jac_code, ren.mask, rr_ren)):
-        J = torch.where(mask[..., None], torch.cat([jac_pose, jac_code], -1), 0.0)
-        n = torch.clamp_min(mask.sum(-1), 1).float()[:, None]
-        H = H + k * (J.transpose(1, 2) @ J) / n[..., None]
-        b = b - k * (J.transpose(1, 2) @ torch.where(mask, rr, 0.0)[..., None])[..., 0] / n
+    term_loss = []
+    for k, (JtJ, Jtr, rsq, count) in zip((cfg.k2, cfg.k1), (sums[:4], sums[4:])):
+        n = torch.clamp_min(count, 1).float()[:, None]
+        H = H + k * JtJ / n[..., None]
+        b = b - k * Jtr / n
+        term_loss.append(rsq / torch.clamp_min(count, 1))
+    sdf_loss, ren_loss = term_loss
+    loss = cfg.k1 * ren_loss + cfg.k2 * sdf_loss
     eye_code = torch.eye(L, device=code.device)
     H[:, 7:, 7:] += cfg.k3 * eye_code
     b[:, 7:] -= cfg.k3 * code
@@ -172,7 +194,7 @@ def _gn_iteration(decoder, cfg: ReconConfig, compute_dtype, carry, rays,
 def reconstruct_objects_batched(decoder, cfg: ReconConfig, t_cam_obj,
                                 pts_surface, pts_mask, rays, ray_mask,
                                 depth_obs, fg_mask, code_init=None,
-                                compute_dtype=torch.float32) -> ReconResult:
+                                compute_dtype=torch.float32, group=None) -> ReconResult:
     """Joint Sim(3) pose + shape code GN fit of B objects at once.
 
     Args (tensors on the decoder's device):
@@ -183,6 +205,8 @@ def reconstruct_objects_batched(decoder, cfg: ReconConfig, t_cam_obj,
         depth is recomputed to 1.1·d_max each iteration, reference :128);
         fg_mask: (B, R) foreground flags.
       code_init: optional (B, L) start codes (zero if None).
+      group: a process group whose ranks split each object's decoder rows
+        (every rank passes the whole batch and gets the whole result).
     """
     dev = decoder.device
     B = t_cam_obj.shape[0]
@@ -193,10 +217,14 @@ def reconstruct_objects_batched(decoder, cfg: ReconConfig, t_cam_obj,
     M = cfg.num_depth_samples
     nc = min(cfg.coarse_iterations, cfg.num_iterations) if cfg.coarse_samples > 0 else 0
     R = rays.shape[1]
+    if group is not None:   # this rank's share of the surface points
+        start, stop, n_pad = dist.shard_range(pts_surface.shape[1], group)
+        pts_surface = dist.pad_rows(pts_surface, n_pad, 1).narrow(1, start, stop - start)
+        pts_mask = dist.pad_rows(pts_mask, n_pad, 1, False).narrow(1, start, stop - start)
 
     def step(carry, rays_p, mask_p, depth_p, fg_p, n_samples):
         return _gn_iteration(decoder, cfg, compute_dtype, carry, rays_p, mask_p,
-                             depth_p, fg_p, pts_surface, pts_mask, n_samples)
+                             depth_p, fg_p, pts_surface, pts_mask, n_samples, group)
 
     carry = (t_obj_cam0, code0, torch.ones(B, dtype=torch.bool, device=dev),
              torch.zeros(B, device=dev), torch.zeros(B, R, device=dev),

@@ -19,8 +19,16 @@ With a vocabulary, the loop stage adds one read of the packed candidate
 matrix (`_loop_candidates_device`) from its sixth keyframe on, and, when a
 candidate is consistent, the reads of `loop_closing` (see there).
 
-Not ported yet: the multi-device reconstruction (slice F: a `recon_mesh`
-raises).
+With a `recon_mesh` (`parallel/mesh.py`) the new-object reconstruction
+shards over its ranks.  Every rank of the default group runs the same
+stage on the same inputs, so each makes the same collectives in the same
+order (from the thread and CUDA stream that run `process`).  The stage
+holds the ranks to that (`parallel/distributed.agree`): at the start of
+every job they must hold the same job and bit-identical map sums, and
+before the reconstruction the same unmatched count; otherwise every rank
+raises there, instead of one rank waiting in a collective that the
+others never make.  That costs one small all_gather and one host read
+per job, two when the job has detections.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
 from dsp_slam_rgbd_tpu_torch.mapping import objects as obj_mod
 from dsp_slam_rgbd_tpu_torch.mapping.local_mapping import _set_row
 from dsp_slam_rgbd_tpu_torch.ops import lie
+from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
 from dsp_slam_rgbd_tpu_torch.system import mono_objects
 from dsp_slam_rgbd_tpu_torch.system import object_stage as ostage
 from dsp_slam_rgbd_tpu_torch.system.detections import (MaskLabel, MonoDetection,
@@ -68,6 +77,20 @@ def _loop_candidates_device(state, db, kf_slot: int, recent_after_fid: int,
     body = torch.nn.functional.pad(torch.cat([scores[None], rows.float()]),
                                    (max_cands, 0, 0, max_cands - L))
     return torch.cat([head[None], body])
+
+
+def map_fingerprint(state) -> torch.Tensor:
+    """f64 sums of the map's keyframes, points and objects (valid slots
+    only), on the map's device: equal bits on two ranks whose maps are."""
+    def total(x, valid):
+        keep = valid.reshape(valid.shape + (1,) * (x.dim() - valid.dim()))
+        return torch.where(keep, x, 0).double().sum()
+
+    s = state
+    return torch.stack([total(s.kf_pose, s.kf_valid), total(s.pt_pos, s.pt_valid),
+                        total(s.obj_pose, s.obj_valid), total(s.obj_code, s.obj_valid),
+                        s.kf_valid.sum().double(), s.pt_valid.sum().double(),
+                        s.obj_valid.sum().double()])
 
 
 def _sanitize_assoc(pt_idx, base_valid, base_first, view_first):
@@ -102,6 +125,7 @@ class KFResult:
     kf_slot: int
     kid: int
     timestamp: float
+    frame_id: int = -1            # the tracker's id of the keyframe's frame
     # state the job STARTED from — the delta base for merging the
     # tracker's found/visible counters accrued while the job ran
     base_pt_visible: object = None
@@ -120,15 +144,16 @@ class MappingStage:
 
     `decoder`: the port's `DeepSDFDecoder` (None: detections are ignored).
     `vocab`: a `loop.vocabulary.Vocabulary` (None: no BoW database and no
-    loop closing).  Runs on the device of `state`, `decoder` and `vocab`."""
+    loop closing).  `recon_mesh`: a `parallel/mesh.py` mesh over which the
+    new-object reconstruction shards (every rank runs the same stage on
+    the same inputs).  Runs on the device of `state`, `decoder` and
+    `vocab`."""
 
     def __init__(self, cfg: SystemConfig, state, kf_valid_host, decoder=None,
                  vocab: vocabulary.Vocabulary = None, recon_mesh=None):
-        if recon_mesh is not None:
-            raise NotImplementedError(
-                "MappingStage(recon_mesh=...): the multi-device reconstruction "
-                "comes with slice F")
         self.cfg = cfg
+        self._recon_mesh = recon_mesh
+        self._jobs = 0   # jobs processed (the agreement checks' sequence number)
         self.state = state
         self.kf_valid_host = kf_valid_host  # shared with the caller
         self.decoder = decoder
@@ -157,7 +182,7 @@ class MappingStage:
         """Run the whole keyframe stage for one job (strictly serial)."""
         res = KFResult(
             state=self.state, kf_slot=job.kf_slot, kid=job.kid,
-            timestamp=job.timestamp,
+            timestamp=job.timestamp, frame_id=job.frame_id,
             base_pt_visible=self.state.pt_visible,
             base_pt_found=self.state.pt_found,
             base_pt_first=self.state.pt_first_kf,
@@ -169,6 +194,10 @@ class MappingStage:
                 frame.pt_idx, self.state.pt_valid, self.state.pt_first_kf,
                 job.view_pt_first))
         detections = job.detections
+        if self._recon_mesh is not None:
+            dist.agree("keyframe job", [self._jobs, job.frame_id, job.kf_slot, job.kid,
+                                        len(detections or ())], map_fingerprint(self.state))
+        self._jobs += 1
 
         slot, kid = job.kf_slot, job.kid
         # early launch of the association (it reads only object fields and
@@ -309,9 +338,13 @@ class MappingStage:
                 upload(det_mask, dev), kf_slot, upload(qs, dev))
 
         pending = None
+        mesh = self._recon_mesh
+        if mesh is not None:
+            dist.agree("unmatched detections", [self._jobs, len(unmatched_idx), len(a_rows)])
         if unmatched_idx:
-            pending = ostage.recon_unmatched(self.decoder, self.cfg.recon, self.state,
-                                             detections, unmatched_idx)
+            pending = ostage.recon_unmatched(
+                self.decoder, self.cfg.recon, self.state, detections, unmatched_idx,
+                mesh=mesh, min_cap=mesh.shape["obj"] if mesh is not None else 1)
 
         keep = obj_mod.cull_objects(self.state.obj_valid, self.state.obj_n_obs,
                                     self.state.obj_last_kf, kf_slot)

@@ -16,8 +16,9 @@ batched steps whatever the detection count:
      `insert_new_objects` scatters every accepted object at once.
 
 The associated rows are padded to a power-of-two capacity bucket, as in
-the JAX package (whose detection and unmatched buckets are the counts
-themselves off the multi-device path).  A scatter that the JAX package writes with an out-of-range
+the JAX package; the unmatched batch is its count off the multi-device
+path and is padded to the mesh's `obj` axis on it (`min_cap`), where the
+fit runs sharded (`parallel/sharded_recon.py`).  A scatter that the JAX package writes with an out-of-range
 "drop" target writes into a spare dump row (index O or Q) that is sliced
 off.  Nothing here reads the device except `associate_read` and
 `recon_unmatched_read`.
@@ -32,6 +33,7 @@ from dsp_slam_rgbd_tpu_torch.mapping import objects as obj_mod
 from dsp_slam_rgbd_tpu_torch.mapping.local_mapping import _scatter
 from dsp_slam_rgbd_tpu_torch.models import mesh as mesh_mod
 from dsp_slam_rgbd_tpu_torch.ops import lie
+from dsp_slam_rgbd_tpu_torch.parallel import sharded_recon
 from dsp_slam_rgbd_tpu_torch.recon import optimizer as recon_opt
 
 
@@ -160,9 +162,14 @@ def refine_associated(decoder, cfg, state, obj_idx, valid, det_t_co, det_pts,
 # 3. unmatched detections: batched joint GN + bbox; scatter accepted objects
 # ---------------------------------------------------------------------------
 def _recon_unmatched_device(decoder, cfg, state, t_co, pts, pts_mask, rays,
-                            ray_mask, depth, fg_mask, code0, valid):
-    res = recon_opt.reconstruct_objects_batched(
-        decoder, cfg, t_co, pts, pts_mask, rays, ray_mask, depth, fg_mask, code0)
+                            ray_mask, depth, fg_mask, code0, valid, mesh=None):
+    if mesh is None:
+        res = recon_opt.reconstruct_objects_batched(
+            decoder, cfg, t_co, pts, pts_mask, rays, ray_mask, depth, fg_mask, code0)
+    else:
+        res = sharded_recon.reconstruct_sharded(decoder, cfg, dict(
+            t_cam_obj=t_co, pts=pts, pts_mask=pts_mask, rays=rays, ray_mask=ray_mask,
+            depth_obs=depth, fg_mask=fg_mask, code_init=code0), mesh)
     bb_min, bb_max = mesh_mod.sdf_bbox(decoder, res.code)
     # one combined flags read: [is_good (U,) | obj_valid (O,)] — obj_valid
     # rides along so host slot allocation needs no second read
@@ -171,18 +178,17 @@ def _recon_unmatched_device(decoder, cfg, state, t_co, pts, pts_mask, rays,
     return res, bb_min, bb_max, flags
 
 
-def recon_unmatched(decoder, cfg, state, detections, det_indices, mesh=None):
+def recon_unmatched(decoder, cfg, state, detections, det_indices, mesh=None,
+                    min_cap: int = 1):
     """Joint Sim3+code GN over every unmatched detection as one batch.
 
     Returns the pending (res, bb_min, bb_max, flags, Ucap, U); nothing is
-    read.  The JAX package's `mesh` shards the batch over devices (its
-    `min_cap` pads the batch to the mesh); that is the scale-out tier
-    (slice F), not ported yet.  Without it the capacity Ucap is U."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "recon_unmatched(mesh=...): the multi-device reconstruction "
-            "(parallel/sharded_recon.py) comes with slice F")
-    U = Ucap = len(det_indices)
+    read.  With a `mesh` (`parallel/mesh.py`) the batch shards over its
+    (obj, ray) axes (`parallel/sharded_recon.py`), and `min_cap`, the
+    mesh's obj-axis size, pads the batch so that every mesh row has
+    objects to fit."""
+    U = len(det_indices)
+    Ucap = bucket(U, minimum=min_cap, cap=max(U, min_cap))
     S = detections[det_indices[0]].pts.shape[0]
     R = detections[det_indices[0]].rays.shape[0]
     L = cfg.code_len
@@ -205,13 +211,14 @@ def recon_unmatched(decoder, cfg, state, detections, det_indices, mesh=None):
         b["pts"][j], b["pts_mask"][j] = d.pts, d.pts_mask
         b["rays"][j], b["ray_mask"][j] = d.rays, d.ray_mask
         b["depth"][j], b["fg_mask"][j] = d.depth, d.fg_mask
-    valid = np.ones(Ucap, bool)
+    valid = np.zeros(Ucap, bool)
+    valid[:U] = True
     dev = decoder.device
     up = {k: upload(v, dev) for k, v in b.items()}
     res, bb_min, bb_max, flags = _recon_unmatched_device(
         decoder, cfg, state, upload(t_co, dev), up["pts"], up["pts_mask"], up["rays"],
         up["ray_mask"], up["depth"], up["fg_mask"],
-        torch.zeros(Ucap, L, device=dev), upload(valid, dev))
+        torch.zeros(Ucap, L, device=dev), upload(valid, dev), mesh)
     return res, bb_min, bb_max, flags, Ucap, U
 
 

@@ -35,6 +35,16 @@ exactly the valid slots of the worker's state (the JAX package shares one
 mirror between the threads; with `async_kf_frames=0` the two agree with
 it).  Relocalization reads the BoW database adopted with the last result,
 not the worker's live one.
+
+When the default process group (`parallel/distributed.py`) has more than
+one rank, the system builds an (obj,) mesh over every rank and the
+new-object reconstruction shards over it (the JAX package's
+`len(jax.devices()) > 1`); a mesh that cannot be built raises.  Every rank
+runs the whole loop on the same inputs, so the mapping stages make the
+same collectives in the same order as long as the replicated maps stay
+bit-identical: `distributed.initialize` makes the card's ops
+deterministic for that, and the mapping stage and `flush` check it
+(`distributed.agree`), so a split raises on every rank.
 """
 from __future__ import annotations
 
@@ -54,6 +64,8 @@ from dsp_slam_rgbd_tpu_torch.loop import keyframe_db, loop_closing, vocabulary
 from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
 from dsp_slam_rgbd_tpu_torch.mapping import map_state as ms
 from dsp_slam_rgbd_tpu_torch.ops import lie
+from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
+from dsp_slam_rgbd_tpu_torch.parallel import mesh as mesh_mod
 from dsp_slam_rgbd_tpu_torch.system import io as io_mod
 from dsp_slam_rgbd_tpu_torch.system.mapping_stage import KFJob, MappingStage
 from dsp_slam_rgbd_tpu_torch.system.prefetch import record_on
@@ -117,8 +129,12 @@ class SLAMSystem:
         # host time the main thread spent blocked on the worker (ms)
         self.blocked_ms = {"adopt": 0.0, "prewait": 0.0}
         self.state = _new_map(cfg, self.device)
+        # more than one rank: the new-object reconstruction shards over them
+        world_size, _ = dist.world()
+        self.recon_mesh = mesh_mod.make_mesh(n_obj=world_size, n_ray=1) \
+            if world_size > 1 else None
         self.mapping = MappingStage(cfg, self.state, np.zeros(cfg.map.max_kf, bool),
-                                    decoder=decoder, vocab=vocab)
+                                    decoder=decoder, vocab=vocab, recon_mesh=self.recon_mesh)
         self._start_lineage()
 
     def _start_lineage(self):
@@ -262,21 +278,23 @@ class SLAMSystem:
         self.tracker._kv_memo = (new_state.kf_valid, res.kf_valid_host)
         # the job's frame became keyframe `kf_slot`: its relative-trajectory
         # entry is re-anchored to itself (T_rel = I), as the reference's
-        # CreateNewKeyFrame makes the new keyframe the frame's reference
+        # CreateNewKeyFrame makes the new keyframe the frame's reference.
+        # The entry is found by frame id (the JAX package matches the
+        # timestamp, which picks a later frame when timestamps repeat)
         rel = self.tracker.relative_trajectory
         for i in range(len(rel) - 1, -1, -1):
-            ts, _ref, _t_rel, ok = rel[i]
-            if ts == res.timestamp:
-                rel[i] = (ts, res.kf_slot, torch.eye(4, device=self.device), ok)
+            ts, _ref, _t_rel, ok, fid = rel[i]
+            if fid == res.frame_id:
+                rel[i] = (ts, res.kf_slot, torch.eye(4, device=self.device), ok, fid)
                 break
         # entries referencing culled keyframes (whose slots may be recycled)
         # move to the fallback keyframe, over the whole list
         if res.culled:
             fix = {c: (fb, t) for c, fb, t in res.culled}
-            for i, (ts, ref, t_rel, ok) in enumerate(rel):
+            for i, (ts, ref, t_rel, ok, fid) in enumerate(rel):
                 if ref in fix:
                     fb, t = fix[ref]
-                    rel[i] = (ts, fb, t_rel @ t, ok)
+                    rel[i] = (ts, fb, t_rel @ t, ok, fid)
             if self.tracker.ref_kf in fix:
                 self.tracker.ref_kf = fix[self.tracker.ref_kf][0]
         if self.tracker.ref_kf < 0:
@@ -302,6 +320,10 @@ class SLAMSystem:
         self.state = self.tracker.state
         while self._pending:
             self._adopt(self._pending.popleft())
+        if self.recon_mesh is not None:
+            # a rank with a keyframe job more than the others meets their
+            # flush here, not a collective of its own
+            dist.agree("flush", [self.n_kf, self.mapping._jobs])
 
     # ------------------------------------------------------------------
     def _reloc_candidates(self, frame, top_k: int = 5) -> list:
@@ -413,7 +435,8 @@ class SLAMSystem:
             # the init frame joins the relative trajectory (its reference
             # keyframe did not exist when it was tracked)
             t_rel = out["frame"].t_cw @ lie.inv_se3(self.state.kf_pose[self.tracker.ref_kf])
-            self.tracker.relative_trajectory.append((timestamp, self.tracker.ref_kf, t_rel, True))
+            self.tracker.relative_trajectory.append(
+                (timestamp, self.tracker.ref_kf, t_rel, True, fid))
 
     # ------------------------------------------------------------------
     def _insert_mono_init(self):
@@ -485,14 +508,14 @@ class SLAMSystem:
         self.flush()
         rel = self.tracker.relative_trajectory
         if rel:
-            rels = torch.stack([t for _, _, t, _ in rel])
+            rels = torch.stack([t for _, _, t, _, _ in rel])
             host = torch.cat([self.state.kf_pose.reshape(-1), rels.reshape(-1)]).cpu().numpy()
             K = self.state.kf_pose.shape[0]
             kf_poses = host[:K * 16].reshape(K, 4, 4)
-            refs = np.asarray([ref for _, ref, _, _ in rel])
+            refs = np.asarray([ref for _, ref, _, _, _ in rel])
             poses = np.einsum("nij,njk->nik", host[K * 16:].reshape(-1, 4, 4), kf_poses[refs])
-            return (np.asarray([t for t, _, _, _ in rel]), poses,
-                    np.asarray([o for _, _, _, o in rel], bool))
+            return (np.asarray([t for t, _, _, _, _ in rel]), poses,
+                    np.asarray([o for _, _, _, o, _ in rel], bool))
         traj = self.tracker.trajectory
         if not traj:
             return np.zeros(0), np.zeros((0, 4, 4)), np.zeros(0, bool)

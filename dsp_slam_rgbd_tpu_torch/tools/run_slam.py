@@ -8,7 +8,14 @@ the CPU, and without a card and without it the run stops with an error):
   python -m dsp_slam_rgbd_tpu_torch.tools.run_slam <sequence_dir> <out_dir> \
       [--sensor stereo|rgbd|mono] [--yaml cfg.yaml] [--json cfg.json] \
       [--labels labels_dir] [--deepsdf checkpoint.npz] [--max-frames N] \
-      [--vocab vocab.npz] [--bootstrap-vocab N] [--device cuda|cpu]
+      [--vocab vocab.npz] [--bootstrap-vocab N] [--device cuda|cpu] \
+      [--distributed --coordinator HOST:PORT --num-processes N --process-id R]
+
+With `--distributed` each of N processes (one per card; gloo with
+`--device cpu`) joins a `torch.distributed` group at the coordinator and
+runs the whole sequence; the new-object reconstruction shards over them
+(`system/slam.py`).  Every process writes the same outputs: give each its
+own out_dir.
 
 The vocabulary enables loop closing and BoW relocalization.  `--vocab`
 loads a trained npz; when the file does not exist and `--bootstrap-vocab
@@ -83,12 +90,20 @@ def parse_args(argv=None):
     ap.add_argument("--gt", default=None,
                     help="ground-truth trajectory (KITTI format) for summary.json's ATE")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process run (not ported: the scale-out slice)")
-    ap.add_argument("--coordinator", default="localhost:9911")
+                    help="join a torch.distributed group before running: one process "
+                         "per device, every process runs the same sequence, and the "
+                         "new-object reconstruction shards over them")
+    ap.add_argument("--coordinator", default="localhost:9911",
+                    help="host:port of rank 0's rendezvous (or a tcp:// / file:// URL)")
     ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
+
+
+def coordinator_url(address: str) -> str:
+    """`host:port` -> `tcp://host:port`; a URL is kept."""
+    return address if "://" in address else f"tcp://{address}"
 
 
 def feature_slots(cfg) -> int:
@@ -105,10 +120,24 @@ def main(argv=None) -> dict:
     frame), "kf_frames" (frames that made a keyframe), "blocked_ms",
     "system"}."""
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: the multi-process run comes with the scale-out slice (slice F)")
+    if not args.distributed:
+        return _run(args)
+    # join the group before anything else runs; leave the one joined here
+    import torch.distributed as tdist
 
+    from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist_mod
+
+    joined = not tdist.is_initialized()
+    dist_mod.initialize(coordinator_url(args.coordinator), args.num_processes,
+                        args.process_id, device=args.device)
+    try:
+        return _run(args)
+    finally:
+        if joined:
+            tdist.destroy_process_group()
+
+
+def _run(args) -> dict:
     from dsp_slam_rgbd_tpu_torch import config as cfg_mod
     from dsp_slam_rgbd_tpu_torch import device as device_mod
     from dsp_slam_rgbd_tpu_torch.models import deepsdf

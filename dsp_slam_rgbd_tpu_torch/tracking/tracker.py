@@ -381,8 +381,9 @@ class Tracker:
         self.init_ref: Optional[Frame] = None  # mono initialization anchor
         # (timestamp, T_cw, ok) per frame — absolute at track time
         self.trajectory = []
-        # (timestamp, ref_kf_slot, T_rel = T_cw·T_ref⁻¹, ok), as the
-        # reference stores frame poses (`System::SaveTrajectoryTUM`)
+        # (timestamp, ref_kf_slot, T_rel = T_cw·T_ref⁻¹, ok, frame id), as
+        # the reference stores frame poses (`System::SaveTrajectoryTUM`);
+        # the frame id names the entry (timestamps need not be distinct)
         self.relative_trajectory = []
         self.n_inliers_last = 0
         self.map_changed = False  # set by the System on loop closure / GBA
@@ -515,7 +516,7 @@ class Tracker:
         self.trajectory.append((timestamp, frame.t_cw, ok))
         ref = rel_ref if rel_ref is not None else self.ref_kf
         if ref >= 0:
-            self.relative_trajectory.append((timestamp, ref, t_rel, ok))
+            self.relative_trajectory.append((timestamp, ref, t_rel, ok, fid))
         self.last_frame = frame
         return {"frame": frame, "ok": ok, "fid": fid, "timestamp": timestamp,
                 "new_kf": ok and self._need_new_keyframe(fid)}
@@ -731,7 +732,7 @@ class Tracker:
         rel = self.relative_trajectory
         if not rel:
             return
-        ts, ref, t_rel, ok = rel[-1]
+        ts, ref, t_rel, ok, _fid = rel[-1]
         if not ok or ts != self.last_frame.timestamp:
             return
         t_cw = lie.orthonormalize_se3(

@@ -32,16 +32,24 @@ from dsp_slam_rgbd_tpu_torch.loop.keyframe_db import BowDatabase
 from dsp_slam_rgbd_tpu_torch.loop.vocabulary import Vocabulary
 from dsp_slam_rgbd_tpu_torch.mapping.ba import BAProblem, BAResult
 from dsp_slam_rgbd_tpu_torch.mapping.map_state import MapState
-from dsp_slam_rgbd_tpu_torch.models.deepsdf import DecoderSpec, DeepSDFDecoder
+from dsp_slam_rgbd_tpu_torch.models.deepsdf import (AnalyticSdfDecoder, DecoderSpec,
+                                                     DeepSDFDecoder)
 from dsp_slam_rgbd_tpu_torch.tracking.tracker import Frame
 
 _WORD_FIELDS = ("desc", "kf_desc", "pt_desc")
 
 
-def decoder_from_numpy(layers, spec: DecoderSpec,
-                       device="cuda") -> DeepSDFDecoder:
-    """[(W (in, out), b (out,)) numpy pairs] -> DeepSDFDecoder on `device`."""
+def decoder_from_numpy(layers, spec, device="cuda", fn=None):
+    """[(W (in, out), b (out,)) numpy pairs] -> DeepSDFDecoder on `device`.
+
+    A JAX `AnalyticSdfSpec` (a spec with `fn` and no `dims`) has no layers:
+    it maps to `AnalyticSdfDecoder` of its code length over `fn`, the
+    caller's torch callable fn(code, xyz) of the same function."""
     dev = device_mod.resolve(device)
+    if not hasattr(spec, "dims"):
+        if fn is None:
+            raise ValueError("an analytic spec needs the torch callable `fn`")
+        return AnalyticSdfDecoder(fn, int(spec.latent_size)).to(dev)
     pairs = [(np.array(W, np.float32), np.array(b, np.float32))
              for W, b in layers]
     return DeepSDFDecoder(DecoderSpec(*spec), pairs).to(dev)

@@ -92,11 +92,25 @@ def test_run_slam_cli_needs_a_card_or_cpu(seqs, tmp_path):
 
 
 def test_run_slam_distributed_names_the_slice(seqs, tmp_path):
+    """--distributed (the scale-out slice, ported): the command line joins a
+    gloo group on the CPU before the run and leaves it after."""
+    from unittest import mock
+
+    import torch.distributed as tdist
+
     from dsp_slam_rgbd_tpu_torch.tools import run_slam
 
-    with pytest.raises(NotImplementedError, match="slice F"):
-        run_slam.main([str(seqs / "stereo"), str(tmp_path / "out"), "--distributed",
-                       "--device", "cpu"])
+    def run(args):
+        return {"backend": tdist.get_backend(), "world": tdist.get_world_size(),
+                "rank": tdist.get_rank()}
+
+    with mock.patch.object(run_slam, "_run", run):
+        out = run_slam.main([str(seqs / "stereo"), str(tmp_path / "out"), "--distributed",
+                             "--coordinator", f"file://{tmp_path / 'rendezvous'}",
+                             "--num-processes", "1", "--process-id", "0", "--device", "cpu"])
+    assert out == {"backend": "gloo", "world": 1, "rank": 0}
+    assert not tdist.is_initialized()
+    assert run_slam.coordinator_url("localhost:9911") == "tcp://localhost:9911"
 
 
 @pytest.mark.parametrize("n_features, preset, slots", [

@@ -200,7 +200,8 @@ def test_module_imports_and_runs_without_nvcc(monkeypatch, both):
     mlp_sdf.reset_launch_counts()
     code, xyz = (torch.tensor(a) for a in _inputs(6, 4))
     mlp_sdf.sdf_value_fused(dec.packed(), code, xyz)
-    assert mlp_sdf.LAUNCHES == {"mlp_sdf_value": 0, "mlp_sdf_jacobian": 0}
+    assert mlp_sdf.LAUNCHES == {"mlp_sdf_value": 0, "mlp_sdf_jacobian": 0,
+                                "mlp_sdf_value_f32": 0, "mlp_sdf_jacobian_f32": 0}
     if not __import__("os").path.isfile("/usr/local/cuda/bin/nvcc"):
         with pytest.raises(build.KernelBuildError):
             build.load()

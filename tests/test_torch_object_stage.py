@@ -59,6 +59,7 @@ from dsp_slam_rgbd_tpu_torch.mapping import map_state as tms
 from dsp_slam_rgbd_tpu_torch.models import deepsdf as tdeepsdf
 from dsp_slam_rgbd_tpu_torch.models import mesh as tmesh
 from dsp_slam_rgbd_tpu_torch.ops import camera as tcam
+from dsp_slam_rgbd_tpu_torch.parallel.mesh import make_mesh
 from dsp_slam_rgbd_tpu_torch.recon.optimizer import ReconConfig as TRecon
 from dsp_slam_rgbd_tpu_torch.system import detections as tdet
 from dsp_slam_rgbd_tpu_torch.system import mapping_stage as tstage
@@ -273,8 +274,13 @@ def test_recon_unmatched_matches_jax(decoders, iters, tol):
     cells = 0 if iters == 1 else 1
     np.testing.assert_array_less(np.abs(_cell(tmin) - _cell(jmin)), cells + 0.5)
     np.testing.assert_array_less(np.abs(_cell(tmax) - _cell(jmax)), cells + 0.5)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        tos.recon_unmatched(dec, tc, ts, td_, [0, 1], mesh=object())
+    # on a one-rank mesh (no process group) the sharded path is the same fit
+    mres, _, _, mflags, mU, _ = tos.recon_unmatched(dec, tc, ts, td_, [0, 1],
+                                                    mesh=make_mesh(), min_cap=1)
+    assert mU == tU
+    _close(mres.t_cam_obj, tres.t_cam_obj, 0)
+    _close(mres.code, tres.code, 0)
+    _close(mflags, tflags, 0)
 
 
 def _cell(v):
@@ -401,7 +407,10 @@ def test_mapping_stage_process_matches_jax(decoders):
 
 @pytest.mark.parametrize("what", ["recon_mesh"])
 def test_mapping_stage_raises_for_parts_not_ported(what):
+    """Every part is ported: the stage takes a reconstruction mesh (slice F)
+    and shards the new-object fit over it."""
     cfg = port_config(make_cfg("stereo"))
     st = tms.empty(max_kf=4, max_feat=8, max_pts=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice F"):
-        tstage.MappingStage(cfg, st, np.zeros(4, bool), **{what: object()})
+    mesh = make_mesh()
+    stage = tstage.MappingStage(cfg, st, np.zeros(4, bool), **{what: mesh})
+    assert stage._recon_mesh is mesh and mesh.shape == {"obj": 1, "ray": 1}

@@ -22,6 +22,8 @@ two keyframe mirrors, exports) against the JAX package's, on the CPU.
     and across a tracked frame (`Tensor._version` unchanged);
   * `_adopt_merge` equal to the JAX package's on random remaps and
     recycled slots;
+  * frames without timestamps give the trajectory of the run with them
+    (re-anchoring by frame id);
   * `reset`, `load_state`, localization mode, keyframe capacity exhausted
     (warned once, tracking goes on), `shutdown`.
 """
@@ -267,6 +269,26 @@ def test_slow_worker_gives_the_same_run(async_run, imgs):
         assert ta == tb and oa == ob and torch.equal(pa, pb)
     for k in tms.MapState._fields:
         assert torch.equal(getattr(slow.state, k), getattr(fast.state, k)), k
+
+
+def test_no_timestamps_give_the_same_trajectory(async_run, imgs):
+    """Frames tracked without timestamps (all 0.0) at `async_kf_frames` 3:
+    a keyframe's relative-trajectory entry is re-anchored by its frame id,
+    so the saved trajectory equals the run with distinct timestamps (the
+    JAX package matches timestamps and would re-anchor the newest entry)."""
+    timed, _, _ = async_run
+    _, tc = configs(3)
+    s = tslam.SLAMSystem(tc, device="cpu")
+    try:
+        for left, right in imgs:
+            s.track_stereo(left, right)
+        _, poses, ok = s._frame_poses()
+    finally:
+        s.shutdown()
+    _, poses_t, ok_t = timed._frame_poses()
+    assert s.n_kf == timed.n_kf >= 3
+    np.testing.assert_array_equal(ok, ok_t)
+    np.testing.assert_array_equal(poses, poses_t)
 
 
 def test_adopt_merge_matches_jax():

@@ -603,8 +603,9 @@ def test_entry_points_default_to_the_card():
 @pytest.mark.parametrize("what", ["pipelined"])
 def test_tracker_raises_for_parts_not_ported(what):
     """The pipelined path is ported (slice E): the tracker takes the option
-    (tests/test_torch_pipelined.py drives it); the part still unported
-    beside it, the multi-device reconstruction, raises naming slice F."""
+    (tests/test_torch_pipelined.py drives it); the part that was unported
+    beside it, the multi-device reconstruction, is ported too (slice F):
+    the mapping stage takes a mesh."""
     from dsp_slam_rgbd_tpu_torch.system.mapping_stage import MappingStage
 
     cfg = port_config(make_cfg("stereo"))
@@ -612,5 +613,7 @@ def test_tracker_raises_for_parts_not_ported(what):
     tr = ttr.Tracker(cfg, tms.empty(max_kf=4, max_feat=8, max_pts=16, device="cpu"),
                      device="cpu")
     assert tr.cfg.tracking.pipelined and tr._inflight is None and tr.finalize_pending() == []
-    with pytest.raises(NotImplementedError, match="slice F"):
-        MappingStage(cfg, tr.state, np.zeros(4, bool), recon_mesh=object())
+    from dsp_slam_rgbd_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    assert MappingStage(cfg, tr.state, np.zeros(4, bool), recon_mesh=mesh)._recon_mesh is mesh

@@ -48,6 +48,19 @@ after a rigid alignment, the largest translation error and the static
 objects' center errors, the numbers 12a's bands come from (~5 min):
 
     JAX_PLATFORMS=cpu python tests/tracking_driver.py cli DIR
+
+With `pipelined DIR` (the "pipelined" stage) it writes `chip_smoke.py`
+phase 12b's RGB-D layout into DIR (12 KITTI-size frames of the tilted
+plane as rgb/ + 16-bit depth/ PNGs, a yaml of phase 8's tracking
+configuration at 5 fps: `tools/sequence_dirs.py::write_rgbd`,
+`write_yaml`) and runs the JAX package's command line over it with the
+port's feature slots, once synchronous and once with the pipelined tracker
+(`TrackingConfig.pipelined`): the JAX pipelined `SLAMSystem` at 12b's
+configuration.  It prints each run's keyframe count and its camera center
+of every frame (CameraTrajectory_TUM.txt), the numbers 12b holds the
+port's two runs to (~3 min):
+
+    JAX_PLATFORMS=cpu python tests/tracking_driver.py pipelined DIR
 """
 import os
 import sys
@@ -359,8 +372,55 @@ def cli_run(root):
             "summary": summary}
 
 
+def pipelined_run(root, n=12):
+    """The JAX command line over 12b's RGB-D layout, synchronous and
+    pipelined -> {mode: {"keyframes", "frames" (frame index of each row),
+    "centers" (each row's camera center), "summary"}}."""
+    import json
+    from unittest import mock
+
+    from dsp_slam_rgbd_tpu import config
+    from dsp_slam_rgbd_tpu_torch.tools import run_slam as port_cli
+    from dsp_slam_rgbd_tpu_torch.tools import sequence_dirs as sd
+    from tools import run_slam as jax_cli
+
+    world = pw.KITTI
+    seq = os.path.join(root, "rgbd")
+    sd.write_rgbd(seq, world, pw.make_texture(world), n)
+    yaml = os.path.join(root, "rgbd.yaml")
+    sd.write_yaml(yaml, world, fps=5.0)
+    read = config.from_reference_yaml_json
+    out = {}
+    for mode in ("sync", "pipelined"):
+        def sized(*a, **k):
+            cfg = read(*a, **k)
+            return config.replace(
+                cfg, map=config.replace(cfg.map, max_feat=port_cli.feature_slots(cfg)),
+                tracking=config.replace(cfg.tracking, pipelined=mode == "pipelined"))
+
+        dst = os.path.join(root, f"out_rgbd_{mode}")
+        argv = ["run_slam.py", seq, dst, "--sensor", "rgbd", "--yaml", yaml]
+        with mock.patch.object(config, "from_reference_yaml_json", sized), \
+                mock.patch.object(sys, "argv", argv):
+            jax_cli.main()
+        rows = np.loadtxt(os.path.join(dst, "CameraTrajectory_TUM.txt"), ndmin=2)
+        with open(os.path.join(dst, "summary.json")) as f:
+            summary = json.load(f)
+        out[mode] = {"keyframes": summary["n_kf"],
+                     "frames": np.round(rows[:, 0] * 5.0).astype(int).tolist(),
+                     "centers": rows[:, 1:4].tolist(), "summary": summary}
+    return out
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["cli"]:
+    if sys.argv[1:2] == ["pipelined"]:
+        t0 = time.perf_counter()
+        for mode, r in pipelined_run(sys.argv[2]).items():
+            print(f"JAX package's command line on the CPU over phase 12b's RGB-D layout, "
+                  f"{mode}: keyframes {r['keyframes']}, frames {r['frames']}, centers "
+                  f"{[[round(float(v), 6) for v in c] for c in r['centers']]}", flush=True)
+        print(f"({time.perf_counter() - t0:.0f} s)")
+    elif sys.argv[1:2] == ["cli"]:
         t0 = time.perf_counter()
         r = cli_run(sys.argv[2])
         print(f"JAX package's command line on the CPU over phase 12a's directory: "
