@@ -13,8 +13,8 @@ adjustment at KITTI-00 scale (phases 9b and 9c), and the keyframe
 `MappingStage` with its object stage, where the f32 kernels run inside
 the SLAM loop (phase 10), the mono object pipeline (10c), monocular
 initialization and loop closing (phase 11), the system loop and its
-command line (phase 12), and the scale-out tier and active mapping
-(phase 13).  Exits non-zero, with no
+command line (phase 12), the scale-out tier and active mapping
+(phase 13), and the benches and aux tools (phase 14).  Exits non-zero, with no
 result line, if there is no card or any phase fails.  Prints, before the
 last line, the card's name and power limit and one JSON line of kernel
 numbers; the last line is {"ok": true, "device": {...}}.  With --report,
@@ -269,6 +269,34 @@ not measured:
   it and read just after, in the kernels line's `launches_by_path`
   (`launches` stays the kernel's main path: phase 4 for bf16, phase 10 for
   f32).
+
+Phase 14 runs the port's benches and aux tools (`dsp_slam_rgbd_tpu_torch/
+tools/`) through their `main`s, as a user would:
+  * 14a: `bench.main` at its default shapes (B=8, 256 points, 512 rays, 10
+    GN iterations, `gpu_fast` bf16, the fixture decoder, 10 chained calls;
+    its pipeline part left to 14c): every fit finite and is_good, both
+    bf16 kernels launched; fits/s printed beside phase 4's (not checked:
+    the host sets both);
+  * 14b: `bench_tracking.main` at KITTI size: ms a frame, fps, the
+    launches of one frame;
+  * 14c: `bench_pipeline.run(frames=12, passes=1)` (short; the tool's
+    default is 36 frames and 3 passes): fps, tracking-only and keyframe
+    frame ms, at least one keyframe and one object, the bf16 value kernel
+    launched (`gpu_fast`'s value pass; the object stage's Jacobian is f32);
+  * 14d: `bench_scaling.main` at one rank over NCCL: its row, both f32
+    kernels launched;
+  * 14e: the aux tools on 12a's output directory, card against CPU:
+    `evaluate_ate` gives 12a's ATE within 1e-6 m; `extract_map_objects`
+    and `visualize_map` (32^3, the fixture decoder) launch the f32 value
+    kernel and every vertex lies within 1e-4 of the CPU run's nearest
+    (a grid value within the card-CPU difference of 0 may take another
+    marching case, which moves no vertex off its grid point), the PNGs
+    equal; `render_objects` at stride 16 within 2e-5 m where both hit,
+    hit masks differing at <= 0.1% of pixels; `train_fixture_decoder`'s
+    3 full-width steps' losses within 1e-4 relative;
+    `convert_reference_labels` on a synthesized `.lbl`.
+  Each path's launches join `launches_by_path`, and the phase fails
+  unless its paths launched all four kernels.
 """
 import argparse
 import contextlib
@@ -2296,12 +2324,18 @@ def system_loop_phase(dev, smi):
     return rep
 
 
-def system_phase(dev, smi):
-    """Phase 12 (see the module docstring) -> the report's "system" entry."""
+def system_phase(dev, smi, keep):
+    """Phase 12 (see the module docstring) -> the report's "system" entry.
+    12a's output directory, with the sequence's gt.txt, is copied to
+    `keep`/out12a for phase 14."""
+    import shutil
+
     t_phase = time.perf_counter()
     rep = {}
     with tempfile.TemporaryDirectory() as tmp:
         rep["cli_objects"] = cli_objects_phase(dev, smi, tmp)
+        shutil.copytree(os.path.join(tmp, "out12a"), os.path.join(keep, "out12a"))
+        shutil.copy(os.path.join(tmp, "kitti", "seq", "gt.txt"), os.path.join(keep, "out12a"))
         rep["cli_layouts"] = cli_layouts_phase(dev, smi, tmp)
     rep["loop"] = system_loop_phase(dev, smi)
     rep["phase_s"] = time.perf_counter() - t_phase
@@ -2743,6 +2777,231 @@ def scale_out_phase(dev, smi, fixture, recon_args, corridor, object_map):
     return rep, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the benches and the aux tools
+# ---------------------------------------------------------------------------
+# card against CPU in 14e: extracted vertices within 1e-4 (each vertex's nearest
+# neighbour in the other mesh: a grid value within the card-CPU difference of 0 may
+# take the other marching case, which moves no vertex off its grid point);
+# render_objects depths within 2e-5 m where both hit (tests/test_torch_renderer.py),
+# hit masks differing at <= 0.1% of pixels (13c's); ATE within 1e-6 m of 12a's;
+# three training steps' losses within 1e-4 relative
+TOOLS_VERTEX_TOL, TOOLS_DEPTH_TOL, TOOLS_HIT_SHARE = 1e-4, 2e-5, 1e-3
+TOOLS_ATE_TOL, TOOLS_LOSS_RTOL = 1e-6, 1e-4
+
+
+def _ply_vertices(path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    nv = int(next(ln for ln in lines if ln.startswith("element vertex")).split()[-1])
+    nf = int(next(ln for ln in lines if ln.startswith("element face")).split()[-1])
+    body = lines[lines.index("end_header") + 1:]
+    return np.array([ln.split()[:3] for ln in body[:nv]], np.float64).reshape(-1, 3), nf
+
+
+def _vertex_gap(a, b):
+    """The largest distance from a vertex of either mesh to the other's nearest."""
+    from scipy.spatial import cKDTree
+
+    if len(a) == 0 or len(b) == 0:
+        return 0.0 if len(a) == len(b) else float("inf")
+    return float(max(cKDTree(b).query(a)[0].max(), cKDTree(a).query(b)[0].max()))
+
+
+def _launched(fn):
+    """(fn's result, each decoder kernel's launches in it, seconds)."""
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
+
+    mlp_sdf.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(mlp_sdf.LAUNCHES), time.perf_counter() - t0
+
+
+def aux_tools_step(dev, smi, keep, ate12a):
+    """14e: the aux tools on 12a's output directory, card against CPU ->
+    (report entry, launches by path)."""
+    import shutil
+
+    from dsp_slam_rgbd_tpu_torch.system import png
+    from dsp_slam_rgbd_tpu_torch.system.sequence import load_label_file
+    from dsp_slam_rgbd_tpu_torch.tools import (convert_reference_labels, evaluate_ate,
+                                               extract_map_objects, render_objects,
+                                               train_fixture_decoder, visualize_map)
+
+    out12a = os.path.join(keep, "out12a")
+    rep, paths, secs = {}, {}, {}
+    # evaluate_ate: 12a's ATE on the card
+    ate, _, secs["evaluate_ate"] = _launched(lambda: evaluate_ate.main(
+        [os.path.join(out12a, "CameraTrajectory.txt"), os.path.join(out12a, "gt.txt")]))
+    rep["ate_m"] = ate["ate_rmse"]
+    check(abs(ate["ate_rmse"] - ate12a) <= TOOLS_ATE_TOL,
+          f"14e evaluate_ate {ate['ate_rmse']} within {TOOLS_ATE_TOL} m of 12a's {ate12a}")
+    # extract_map_objects and visualize_map, card and CPU, each into its own copy
+    runs = {}
+    for device in ("cuda", "cpu"):
+        d = os.path.join(keep, f"map14_{device}")
+        shutil.copytree(out12a, d)
+        dev_args = ["--device", device]
+        meshes, n_ext, s_ext = _launched(lambda: extract_map_objects.main(
+            [d, FIXTURE, "--voxels", "32", *dev_args]))
+        scene, n_viz, s_viz = _launched(lambda: visualize_map.main(
+            [d, "--deepsdf", FIXTURE, "--png", os.path.join(d, "map.png"), *dev_args]))
+        runs[device] = (d, meshes, scene)
+        if device == "cuda":
+            paths["14e extract_map_objects"], paths["14e visualize_map"] = n_ext, n_viz
+            secs["extract_map_objects"], secs["visualize_map"] = s_ext, s_viz
+        else:
+            secs["extract_map_objects_cpu"], secs["visualize_map_cpu"] = s_ext, s_viz
+    (dg, mg, sg), (dc, mc, sc) = runs["cuda"], runs["cpu"]
+    check(sorted(mg) == sorted(mc) and len(mg) >= 7, f"14e the same objects: {sorted(mg)}")
+    gaps = {}
+    for oid in mg:
+        vg, fg = _ply_vertices(os.path.join(dg, "meshes", f"{oid}.ply"))
+        vc, fc = _ply_vertices(os.path.join(dc, "meshes", f"{oid}.ply"))
+        check(len(vg) > 0 and fg > 0, f"14e object {oid} meshed on the card")
+        gaps[oid] = (_vertex_gap(vg, vc), fg, fc)
+    gap = max(g for g, _, _ in gaps.values())
+    check(gap <= TOOLS_VERTEX_TOL, f"14e extract_map_objects card vs CPU vertices: {gaps}")
+    vg, fg = _ply_vertices(os.path.join(dg, "scene.ply"))
+    vc, fc = _ply_vertices(os.path.join(dc, "scene.ply"))
+    scene_gap = _vertex_gap(vg, vc)
+    check(scene_gap <= TOOLS_VERTEX_TOL and fg > 0,
+          f"14e visualize_map scene.ply card vs CPU: {scene_gap}, faces {fg} / {fc}")
+    img = png.read_png(os.path.join(dg, "map.png"))
+    check(np.array_equal(img, png.read_png(os.path.join(dc, "map.png")))
+          and int(np.all(img == visualize_map.TRAJECTORY_RGB, -1).sum()) > 0,
+          "14e visualize_map's PNG: the card's equals the CPU's, trajectory drawn")
+    for name in ("extract_map_objects", "visualize_map"):
+        n = paths[f"14e {name}"]
+        check(n["mlp_sdf_value_f32"] > 0, f"14e {name} launched the f32 value kernel: {n}")
+    rep.update(extract_vertex_gap=gap, extract_faces={int(k): [f1, f2] for k, (_, f1, f2)
+                                                      in gaps.items()},
+               scene_vertex_gap=scene_gap, scene_faces=[fg, fc])
+    # render_objects at stride 16 (the CPU's share of the comparison stays short)
+    rend = {}
+    for device in ("cuda", "cpu"):
+        rend[device], n, s = _launched(lambda: render_objects.main(
+            [out12a, os.path.join(keep, f"render14_{device}"), "--decoder", FIXTURE,
+             "--stride", "16", "--device", device]))
+        if device == "cuda":
+            paths["14e render_objects"], secs["render_objects"] = n, s
+        else:
+            secs["render_objects_cpu"] = s
+    check(paths["14e render_objects"]["mlp_sdf_value_f32"] > 0,
+          f"14e render_objects launched the f32 value kernel: {paths['14e render_objects']}")
+    d_err, hit_diff, hits = 0.0, 0, 0
+    for o, (dg_, hg) in rend["cuda"].items():
+        dc_, hc = rend["cpu"][o]
+        both = hg & hc
+        hits += int(hg.sum())
+        hit_diff += int((hg != hc).sum())
+        if both.any():
+            d_err = max(d_err, float(np.abs(dg_[both] - dc_[both]).max()))
+    n_px = sum(h.size for _, h in rend["cuda"].values())
+    check(hits > 0 and d_err <= TOOLS_DEPTH_TOL and hit_diff <= TOOLS_HIT_SHARE * n_px,
+          f"14e render_objects card vs CPU: depth {d_err}, hit masks differ at {hit_diff} of "
+          f"{n_px} px ({hits} hit)")
+    rep.update(render_depth_err=d_err, render_hit_diff=hit_diff, render_px=n_px,
+               render_hits=hits)
+    # train_fixture_decoder: 3 full-width steps on each, the same weights and batches
+    losses = {}
+    for device in ("cuda", "cpu"):
+        res, _, s = _launched(lambda: train_fixture_decoder.main(
+            ["--steps", "3", "--out", os.path.join(keep, f"train14_{device}.npz"),
+             "--device", device]))
+        losses[device] = res["losses"]
+        secs[f"train_fixture_decoder_3_steps_{device}"] = s
+    rel = float(np.abs(losses["cuda"] - losses["cpu"]).max() / np.abs(losses["cpu"]).max())
+    check(rel <= TOOLS_LOSS_RTOL, f"14e train_fixture_decoder losses card {losses['cuda']} vs "
+          f"CPU {losses['cpu']}: {rel} relative")
+    rep.update(train_losses_card=losses["cuda"].tolist(), train_losses_cpu=losses["cpu"].tolist(),
+               train_loss_rel=rel)
+    # convert_reference_labels on a synthesized .lbl (host only)
+    lbl = os.path.join(keep, "lbl14")
+    os.makedirs(lbl)
+    torch.save({"boxes": torch.tensor([[2.0, 1.5, 14.0, 4.0, 1.6, 1.8, 0.3]])},
+               os.path.join(lbl, "000000.lbl"))
+    counts, _, secs["convert_reference_labels"] = _launched(lambda: convert_reference_labels.main(
+        [lbl, os.path.join(keep, "labels14")]))
+    dets = load_label_file(os.path.join(keep, "labels14", "000000.npz"))
+    check(counts == {"000000": 1} and len(dets) == 1 and abs(dets[0].scale - 2.0) < 1e-6,
+          f"14e convert_reference_labels: {counts}")
+    rep["seconds"] = secs
+    print(f"phase 14e aux tools on 12a's output directory: evaluate_ate {rep['ate_m']:.6f} m "
+          f"(12a {ate12a:.6f}); extract_map_objects {len(mg)} objects at 32^3, vertices within "
+          f"{gap:.3g} of the CPU's, faces card/CPU "
+          + ", ".join(f"{k}: {f1}/{f2}" for k, (_, f1, f2) in sorted(gaps.items()))
+          + f"; visualize_map scene.ply {len(vg)} vertices, {fg} faces (CPU {fc}), within "
+          f"{scene_gap:.3g}, the PNGs equal; render_objects (stride 16) {hits} hit px, depth "
+          f"within {d_err:.3g} m of the CPU's, hit masks differ at {hit_diff} of {n_px} px; "
+          f"train_fixture_decoder 3 steps, losses card {losses['cuda'].tolist()} CPU "
+          f"{losses['cpu'].tolist()} ({rel:.3g} relative); convert_reference_labels "
+          f"{counts}; seconds " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f"; decoder launches by path {paths} on {smi}", flush=True)
+    return rep, paths
+
+
+def tools_phase(dev, smi, keep, phase4_fits_per_s, ate12a):
+    """Phase 14 (see the module docstring) -> (the report's "tools" entry,
+    each kernel's launches on this phase's paths)."""
+    from dsp_slam_rgbd_tpu_torch.tools import bench, bench_pipeline, bench_scaling, bench_tracking
+
+    t_phase = time.perf_counter()
+    rep, paths = {"card": smi}, {}
+    # ---- 14a. the fits/s bench at its default shapes
+    (line, res), n, s = _launched(lambda: bench.main(["--pipeline-frames", "0"]))
+    paths["14a bench"] = n
+    check(n["mlp_sdf_value"] > 0 and n["mlp_sdf_jacobian"] > 0,
+          f"14a both bf16 kernels launched by the bench: {n}")
+    check(bool(torch.isfinite(res.t_cam_obj).all()) and bool(res.is_good.all()),
+          f"14a every fit finite and is_good: {res.is_good.tolist()}")
+    rep["bench"] = dict(line, seconds=s, is_good=res.is_good.tolist())
+    print(f"phase 14a tools/bench.py (B=8, 256 points, 512 rays, 10 GN iterations, gpu_fast "
+          f"bf16, fixture decoder, 10 chained calls): {line['value']:.2f} fits/s (phase 4 in "
+          f"this call: {phase4_fits_per_s:.2f}), mfu {line['mfu']}, {line['model_tflops']:.3f} "
+          f"TFLOP/s; every fit is_good; launches {n}; {s:.1f} s on {smi}", flush=True)
+    # ---- 14b. the tracking bench at KITTI size
+    (line, launches), n, s = _launched(lambda: bench_tracking.main([]))
+    check(np.isfinite(line["per_frame_ms"]) and launches > 0, f"14b tracking bench: {line}")
+    rep["tracking"] = dict(line, launches_per_frame=launches, seconds=s)
+    print(f"phase 14b tools/bench_tracking.py (1241x376, 2,000 features, 8 levels, 30 frames): "
+          f"{line['per_frame_ms']:.2f} ms a frame ({line['value']:.2f} fps), {launches} "
+          f"launches a frame; {s:.1f} s on {smi}", flush=True)
+    # ---- 14c. the whole pipeline, short: 12 frames, one timed pass
+    p, n, s = _launched(lambda: bench_pipeline.run(frames=12, passes=1, device=dev))
+    paths["14c bench_pipeline"] = n
+    check(p["keyframes"] >= 1 and p["objects"] >= 1 and np.isfinite(p["value"]),
+          f"14c at least one keyframe and one object: {p}")
+    check(n["mlp_sdf_value"] > 0, f"14c the bf16 value kernel launched (gpu_fast): {n}")
+    rep["pipeline"] = dict(p, seconds=s)
+    print(f"phase 14c tools/bench_pipeline.run(frames=12, passes=1) (short: the tool's default "
+          f"is 36 frames, 3 passes): {p['value']:.3f} fps, tracking-only {p['track_only_ms']} ms, "
+          f"keyframe frames {p['kf_frame_ms']} ms, {p['keyframes']} keyframes, {p['objects']} "
+          f"objects, sync rtt {p['sync_rtt_ms']:.3f} ms; launches {n}; {s:.1f} s on {smi}",
+          flush=True)
+    # ---- 14d. sharded reconstruction at one rank over NCCL
+    rows, n, s = _launched(lambda: bench_scaling.main([]))
+    paths["14d bench_scaling"] = n
+    check(len(rows) == 1 and rows[0]["devices"] == 1 and n["mlp_sdf_value_f32"] > 0
+          and n["mlp_sdf_jacobian_f32"] > 0, f"14d one rank, both f32 kernels: {rows} {n}")
+    rep["scaling"] = dict(rows[0], seconds=s)
+    print(f"phase 14d tools/bench_scaling.py (one rank, NCCL; ReconConfig() f32, 8 objects, "
+          f"256 points, 512 rays, 3 calls): {rows[0]}; launches {n}; {s:.1f} s on {smi}; "
+          f"N >= 2 ranks not measured (one card)", flush=True)
+    # ---- 14e. the aux tools
+    rep["aux"], aux_paths = aux_tools_step(dev, smi, keep, ate12a)
+    paths.update(aux_paths)
+    seen = {k for n in paths.values() for k, v in n.items() if v > 0}
+    check(seen == {"mlp_sdf_value", "mlp_sdf_jacobian", "mlp_sdf_value_f32",
+                   "mlp_sdf_jacobian_f32"}, f"phase 14 launched all four kernels: {paths}")
+    rep["launches_by_path"] = paths
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 14 launches by path {paths}; phase 14 took {rep['phase_s']:.0f} s", flush=True)
+    return rep, paths
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measured numbers to this JSON file")
@@ -3068,11 +3327,15 @@ def main(argv=None):
     report["objects"], kernels_f32, object_map = objects_phase(dev, smi, mem_bw)
     # ---- 11. monocular initialization and loop closing (no kernel of the port)
     report["loop"] = loop_phase(dev, smi)
-    # ---- 12. the system loop and the command line (f32 kernels in the worker)
-    report["system"] = system_phase(dev, smi)
-    # ---- 13. the scale-out tier (NCCL, world size 1) and active mapping
-    report["scale_out"], paths13 = scale_out_phase(dev, smi, fixture, args, corridor,
-                                                      object_map)
+    with tempfile.TemporaryDirectory() as keep:
+        # ---- 12. the system loop and the command line (f32 kernels in the worker)
+        report["system"] = system_phase(dev, smi, keep)
+        # ---- 13. the scale-out tier (NCCL, world size 1) and active mapping
+        report["scale_out"], paths13 = scale_out_phase(dev, smi, fixture, args, corridor,
+                                                          object_map)
+        # ---- 14. the benches and the aux tools
+        report["tools"], paths14 = tools_phase(dev, smi, keep, report["main_path"]["fits_per_s"],
+                                               report["system"]["cli_objects"]["ate_m"])
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "rows", "dtype")
@@ -3091,9 +3354,9 @@ def main(argv=None):
              small={k: v for k, v in t_jac_sdf.items() if k in keys}),
     ] + kernels_f32
     # `launches`: the kernel's main path (phase 4 for bf16, phase 10 for f32);
-    # beside it, its count on each path of phase 13
+    # beside it, its count on each path of phases 13 and 14
     for k in kernels:
-        k["launches_by_path"] = {path: n[k["name"]] for path, n in paths13.items()}
+        k["launches_by_path"] = {path: n[k["name"]] for path, n in {**paths13, **paths14}.items()}
     if opts.report:
         os.makedirs(os.path.dirname(os.path.abspath(opts.report)), exist_ok=True)
         with open(opts.report, "w") as f:

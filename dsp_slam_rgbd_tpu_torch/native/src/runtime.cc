@@ -100,50 +100,70 @@ long box_crop(const float* pts, long n, const float* R_row_major,
 // ---------------------------------------------------------------------------
 // Double-buffered file prefetcher: a background thread reads file i+1 while
 // the caller consumes file i.
+//
+// Slot s holds file `loaded[s]`.  A thread that reads into a slot first
+// claims it (`loading[s]` = the file's index) under the mutex, reads into a
+// vector of its own outside the lock, and publishes buffer, size and index
+// under the lock.  So no slot is written while another thread touches it,
+// and `get` waits for a claim in flight on its slot instead of loading
+// beside it.
 // ---------------------------------------------------------------------------
 struct Prefetcher {
   std::vector<std::string> paths;
   std::vector<uint8_t> buf[2];
   long sizes[2] = {0, 0};
   int loaded[2] = {-1, -1};
+  int loading[2] = {-1, -1};
   size_t next_to_load = 0;
   std::thread worker;
   std::mutex mu;
   std::condition_variable cv;
   std::atomic<bool> stop{false};
 
-  void load_into(int slot, size_t idx) {
+  // Reads file idx into `out`; returns its size, or -1 when it cannot be
+  // opened.  Touches no shared state.
+  long read_file(size_t idx, std::vector<uint8_t>& out) const {
     FILE* f = fopen(paths[idx].c_str(), "rb");
-    if (!f) {
-      sizes[slot] = -1;
-      loaded[slot] = static_cast<int>(idx);
-      return;
-    }
+    if (!f) return -1;
     fseek(f, 0, SEEK_END);
     long bytes = ftell(f);
     fseek(f, 0, SEEK_SET);
-    buf[slot].resize(static_cast<size_t>(bytes));
-    long got = static_cast<long>(fread(buf[slot].data(), 1,
+    out.resize(static_cast<size_t>(bytes));
+    long got = static_cast<long>(fread(out.data(), 1,
                                        static_cast<size_t>(bytes), f));
     fclose(f);
-    sizes[slot] = got;
+    return got;
+  }
+
+  // Loads file idx into its slot, which the caller has claimed.  Called and
+  // returns with `lk` held; the read itself runs unlocked.
+  void load_claimed(std::unique_lock<std::mutex>& lk, size_t idx) {
+    int slot = static_cast<int>(idx % 2);
+    lk.unlock();
+    std::vector<uint8_t> data;
+    long sz = read_file(idx, data);
+    lk.lock();
+    buf[slot].swap(data);
+    sizes[slot] = sz;
     loaded[slot] = static_cast<int>(idx);
+    loading[slot] = -1;
+    cv.notify_all();
   }
 
   void run() {
+    std::unique_lock<std::mutex> lk(mu);
     while (true) {
-      std::unique_lock<std::mutex> lk(mu);
       cv.wait(lk, [&] {
-        return stop.load() || (next_to_load < paths.size() &&
-                               loaded[next_to_load % 2] !=
-                                   static_cast<int>(next_to_load));
+        if (stop.load()) return true;
+        if (next_to_load >= paths.size()) return false;
+        int slot = static_cast<int>(next_to_load % 2);
+        return loaded[slot] != static_cast<int>(next_to_load) &&
+               loading[slot] == -1;
       });
       if (stop.load()) return;
       size_t idx = next_to_load;
-      lk.unlock();
-      load_into(static_cast<int>(idx % 2), idx);
-      lk.lock();
-      cv.notify_all();
+      loading[idx % 2] = static_cast<int>(idx);
+      load_claimed(lk, idx);
     }
   }
 };
@@ -162,22 +182,24 @@ long prefetcher_get(void* handle, long idx, uint8_t* out, long max_bytes) {
   auto* p = static_cast<Prefetcher*>(handle);
   if (idx < 0 || static_cast<size_t>(idx) >= p->paths.size()) return -1;
   int slot = static_cast<int>(idx % 2);
-  {
-    std::unique_lock<std::mutex> lk(p->mu);
-    if (p->loaded[slot] != static_cast<int>(idx)) {
+  std::unique_lock<std::mutex> lk(p->mu);
+  while (p->loaded[slot] != static_cast<int>(idx)) {
+    if (p->loading[slot] != -1) {
+      // a load into this slot is in flight (of idx or of another file)
+      p->cv.wait(lk);
+    } else {
       // not prefetched (random access): load synchronously
-      lk.unlock();
-      p->load_into(slot, static_cast<size_t>(idx));
-      lk.lock();
+      p->loading[slot] = static_cast<int>(idx);
+      p->load_claimed(lk, static_cast<size_t>(idx));
     }
-    long sz = p->sizes[slot];
-    if (sz > 0) memcpy(out, p->buf[slot].data(),
-                       static_cast<size_t>(sz < max_bytes ? sz : max_bytes));
-    // schedule the next file
-    p->next_to_load = static_cast<size_t>(idx + 1);
-    p->cv.notify_all();
-    return sz;
   }
+  long sz = p->sizes[slot];
+  if (sz > 0) memcpy(out, p->buf[slot].data(),
+                     static_cast<size_t>(sz < max_bytes ? sz : max_bytes));
+  // schedule the next file
+  p->next_to_load = static_cast<size_t>(idx + 1);
+  p->cv.notify_all();
+  return sz;
 }
 
 long prefetcher_size(void* handle, long idx) {

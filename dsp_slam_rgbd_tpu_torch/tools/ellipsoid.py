@@ -11,7 +11,12 @@ object's up is −y_cam, as on KITTI.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+FIXTURE = os.path.normpath(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
+                                        "tests", "fixtures", "ellipsoid_decoder_64.npz"))
 
 
 def code_to_axes(code: np.ndarray) -> np.ndarray:

@@ -1,0 +1,159 @@
+"""The port's benches (`dsp_slam_rgbd_tpu_torch/tools/bench*.py`) at tiny
+sizes on the CPU.
+
+  * `bench.flops_per_recon` equals `bench.py`'s FLOP model (transcribed
+    below) over the JAX package's `ReconConfig.tpu_fast()` and
+    `DecoderSpec()` at 256 points and 512 rays, and the port's `gpu_fast`
+    carries the same knobs;
+  * `bench` (B=2, 16 points, 32 rays, 2 GN iterations), `bench_tracking`
+    (224×160), `bench_pipeline.run` (224×160, 6 frames, 1 pass) and
+    `bench_scaling --processes 2` (two gloo ranks) print JSON lines with
+    the JAX benches' keys, in their order, and finite values;
+  * without a card and without `--device cpu` every bench raises.
+"""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from dsp_slam_rgbd_tpu.models import deepsdf as jdeepsdf
+from dsp_slam_rgbd_tpu.recon.optimizer import ReconConfig as JReconConfig
+from dsp_slam_rgbd_tpu_torch.models import deepsdf as tdeepsdf
+from dsp_slam_rgbd_tpu_torch.recon.optimizer import ReconConfig
+from dsp_slam_rgbd_tpu_torch.tools import bench, bench_pipeline, bench_scaling, bench_tracking
+
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "model_tflops", "mfu", "device_kind",
+              "flops_per_recon_g", "ref_budget_flops_per_recon_g"]
+PIPELINE_KEYS = ["metric", "value", "unit", "vs_baseline", "frames", "keyframes",
+                 "track_only_ms", "kf_frame_ms", "split_note", "passes_fps", "sync_rtt_ms",
+                 "n_kf_total", "objects", "decoder"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two threads a test process: the suite runs in several processes at
+    once, and more threads than cores make small ops spin."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def jax_bench_flops(spec, cfg, N_PTS, N_RAYS):
+    """`bench.py:97-132`, as written there."""
+    f_fwd = sum(2 * i * o for i, o in spec.layer_dims())
+    M = cfg.num_depth_samples
+    K_grad = cfg.max_grad_points
+    D = 7 + cfg.code_len
+    nc = min(cfg.coarse_iterations, cfg.num_iterations) \
+        if cfg.coarse_samples > 0 else 0
+    r_fine = int(np.ceil(N_RAYS * cfg.active_ray_fraction)) \
+        if nc > 0 else N_RAYS
+    value_pts = nc * N_RAYS * cfg.coarse_samples \
+        + (cfg.num_iterations - nc) * r_fine * M
+    flops_obj = (
+        value_pts * f_fwd
+        + cfg.num_iterations * (
+            3 * K_grad * f_fwd
+            + 3 * N_PTS * f_fwd
+            + 2 * (K_grad + N_PTS) * D * D
+        )
+    )
+    flops_obj_ref_budget = cfg.num_iterations * (
+        N_RAYS * M * f_fwd + 3 * K_grad * f_fwd + 3 * N_PTS * f_fwd
+        + 2 * (K_grad + N_PTS) * D * D
+    )
+    return flops_obj, flops_obj_ref_budget
+
+
+def test_flop_model_matches_bench_py():
+    jcfg, tcfg = JReconConfig.tpu_fast(), ReconConfig.gpu_fast()
+    for f in ("code_len", "num_depth_samples", "num_iterations", "max_grad_points",
+              "coarse_iterations", "coarse_samples", "active_ray_fraction"):
+        assert getattr(tcfg, f) == getattr(jcfg, f), f
+    want = jax_bench_flops(jdeepsdf.DecoderSpec(), jcfg, 256, 512)
+    got = bench.flops_per_recon(tdeepsdf.DecoderSpec(), tcfg, 256, 512)
+    assert got == tuple(float(x) for x in want)
+    assert got[0] < got[1]          # the two-phase schedule does less than the budget
+    # without the coarse phase both count the same dense value pass
+    plain = ReconConfig()
+    assert bench.flops_per_recon(tdeepsdf.DecoderSpec(), plain, 256, 512) == tuple(
+        float(x) for x in jax_bench_flops(jdeepsdf.DecoderSpec(), JReconConfig(), 256, 512))
+
+
+def _json_line(out: str) -> dict:
+    return json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+
+
+def test_bench_tiny(capsys, monkeypatch):
+    line, res = bench.main(["--objects", "2", "--points", "16", "--rays", "32",
+                            "--iterations", "2", "--reps", "2", "--pipeline-frames", "0",
+                            "--device", "cpu"])
+    printed = _json_line(capsys.readouterr().out)
+    assert printed == line and list(line) == BENCH_KEYS + ["decoder"]
+    assert line["decoder"].endswith("tests/fixtures/ellipsoid_decoder_64.npz")
+    assert line["device_kind"] == "cpu" and line["mfu"] is None
+    for k in ("value", "vs_baseline", "model_tflops", "flops_per_recon_g",
+              "ref_budget_flops_per_recon_g"):
+        assert np.isfinite(line[k]) and line[k] > 0, k
+    assert res.t_cam_obj.shape == (2, 4, 4) and bool(torch.isfinite(res.t_cam_obj).all())
+    # the pipeline part's keys follow the primary ones (the run itself: below)
+    seen = {}
+
+    def fake_run(**kw):
+        seen.update(kw)
+        return {"value": 1.5, "track_only_ms": 2.0, "kf_frame_ms": 3.0, "passes_fps": [1.5],
+                "sync_rtt_ms": 0.1}
+
+    monkeypatch.setattr(bench_pipeline, "run", fake_run)
+    line, _ = bench.main(["--objects", "1", "--points", "8", "--rays", "8", "--iterations", "1",
+                          "--reps", "1", "--pipeline-frames", "4", "--device", "cpu"])
+    assert list(line) == BENCH_KEYS + [
+        "pipeline_fps", "pipeline_track_only_ms", "pipeline_kf_frame_ms", "pipeline_passes_fps",
+        "pipeline_sync_rtt_ms", "decoder"]
+    assert seen["frames"] == 4 and seen["decoder_path"] == bench.FIXTURE
+
+
+def test_bench_tracking_tiny(capsys):
+    line, launches = bench_tracking.main(["--size", "160", "224", "--frames", "2",
+                                          "--device", "cpu"])
+    assert _json_line(capsys.readouterr().out) == line
+    assert list(line) == ["metric", "value", "unit", "per_frame_ms", "vs_baseline"]
+    assert launches is None                   # counted on the card only
+    assert line["per_frame_ms"] > 0 and np.isfinite(line["value"])
+
+
+def test_bench_pipeline_tiny():
+    out = bench_pipeline.run(frames=6, passes=1, hw=(160, 224), device="cpu")
+    assert list(out) == PIPELINE_KEYS
+    assert out["frames"] == 6 and out["keyframes"] >= 1 and out["objects"] >= 1
+    assert out["n_kf_total"] >= out["keyframes"]
+    for k in ("value", "kf_frame_ms", "sync_rtt_ms"):
+        assert np.isfinite(out[k]) and out[k] > 0, k
+    assert len(out["passes_fps"]) == 1 and out["unit"].startswith("frames/s (224x160")
+
+
+def test_bench_scaling_two_gloo_ranks(tmp_path, capsys):
+    spec = tdeepsdf.DecoderSpec(dims=(32,) * 4, latent_in=())
+    tdeepsdf.save_npz(str(tmp_path / "dec.npz"),
+                      tdeepsdf.init_decoder(spec, seed=0, device="cpu"))
+    rows = bench_scaling.main(["--processes", "2", "--batch-per-device", "1", "--points", "16",
+                               "--rays", "32", "--iterations", "1", "--reps", "1",
+                               "--decoder", str(tmp_path / "dec.npz"), "--device", "cpu"])
+    printed = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith("{")]
+    assert printed == rows and [r["devices"] for r in rows] == [1, 2]
+    for r in rows:
+        assert list(r) == ["devices", "recon_per_s", "sdf_queries_per_s", "efficiency"]
+        assert all(np.isfinite(v) and v > 0 for v in r.values())
+    assert rows[0]["efficiency"] == 1.0
+
+
+@pytest.mark.parametrize("main", [bench.main, bench_tracking.main, bench_pipeline.main,
+                                  bench_scaling.main])
+def test_benches_default_to_the_card(main):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([])

@@ -262,6 +262,34 @@ def test_native_library_matches_jax(tmp_path):
     assert lib.startswith(tnative.BUILD_DIR) and os.path.isfile(lib)
 
 
+def test_native_prefetcher_returns_each_file_under_any_order(tmp_path):
+    """2,000 `get` calls over 4 prefetchers: sequential runs, repeats and
+    random jumps, so that `get` often asks for a slot while the worker is
+    still reading another (or the same) file into it.  Every call must
+    give its own file's bytes."""
+    rng = np.random.default_rng(12)
+    files, paths = [], []
+    for i in range(8):
+        data = rng.integers(0, 256, 40_000 + 23_000 * i, dtype=np.uint8).tobytes()
+        p = tmp_path / f"s{i}.bin"
+        p.write_bytes(data)
+        files.append(data)
+        paths.append(str(p))
+    for _ in range(4):
+        order = []
+        while len(order) < 500:
+            kind, start = rng.integers(3), int(rng.integers(8))
+            if kind == 0:            # a sequential run
+                order += [(start + k) % 8 for k in range(int(rng.integers(2, 9)))]
+            elif kind == 1:          # a repeat
+                order += [start] * int(rng.integers(2, 4))
+            else:                    # a jump
+                order.append(start)
+        with tnative.Prefetcher(paths) as pf:
+            for i in order[:500]:
+                assert pf.get(i) == files[i], f"get({i}) returned another file"
+
+
 def test_image_prefetcher_uploads_ahead_and_raises_the_sources_error():
     import torch
 
