@@ -14,11 +14,13 @@ adjustment at KITTI-00 scale (phases 9b and 9c), and the keyframe
 the SLAM loop (phase 10), the mono object pipeline (10c), monocular
 initialization and loop closing (phase 11), the system loop and its
 command line (phase 12), the scale-out tier and active mapping
-(phase 13), and the benches and aux tools (phase 14).  Exits non-zero, with no
-result line, if there is no card or any phase fails.  Prints, before the
-last line, the card's name and power limit and one JSON line of kernel
-numbers; the last line is {"ok": true, "device": {...}}.  With --report,
-every measured number also goes to that JSON file.
+(phase 13), the benches and aux tools (phase 14), and whether every
+decoder kernel repeats bit for bit inside the loop (phase 15).  Exits
+non-zero, with no result line, if there is no card or any phase fails.
+Prints, before the last line, the card's name and power limit and one
+JSON line of kernel numbers; the last line is {"ok": true, "device":
+{...}}.  With --report, every measured number also goes to that JSON
+file.
 
 Phase 2 also counts the tensor-core (HGMMA) instructions in the SASS of
 both bf16 kernels (value and Jacobian) and fails if there are none or if
@@ -297,6 +299,26 @@ tools/`) through their `main`s, as a user would:
     `convert_reference_labels` on a synthesized `.lbl`.
   Each path's launches join `launches_by_path`, and the phase fails
   unless its paths launched all four kernels.
+
+Phase 15 makes every decoder kernel call three times on the same inputs
+and stream (`tools/kernel_repeat.py`) and fails if any call's three
+results are not equal bit for bit:
+  * loop-fast: the bf16 pair under `gpu_fast`, `bench_pipeline`'s system
+    loop (12 frames, one pass), then `bench.py`'s batched fits over and
+    over while a second thread runs that pipeline again;
+  * stress: the object stage's and the fits' launch sizes for 45 s on a
+    stream of their own, beside a second thread launching the f32 pair,
+    ORB extraction and memory-bound kernels (whose blocks share the SMs);
+  * loop: the command line over the first 8 frames of 12a's directory
+    (the f32 pair), twice, under the deterministic algorithms.
+  It prints calls, faults, tilings and row counts per kernel, fails unless
+  the loop runs reached both pairs and the stress run all four kernels,
+  and fails unless the f32 Jacobian calls would have caught the fault of
+  its earlier kernel (no proxy fence in the ring) at least 5 times at the
+  rates measured on it (`PARENT_FAULTS_PER_CALL`).  Nearly all of that
+  power is stress's (~700 expected faults); the loop runs' ~100 f32
+  Jacobian calls expect ~0.2 at the loop's rate, and the loops are there
+  to cover the bf16 pair and the f32 call sizes the SLAM loop makes.
 """
 import argparse
 import contextlib
@@ -3002,6 +3024,57 @@ def tools_phase(dev, smi, keep, phase4_fits_per_s, ate12a):
     return rep, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the decoder kernels repeat bit for bit inside the SLAM loop
+# ---------------------------------------------------------------------------
+# The f32 Jacobian kernel before its ring's proxy fence (the parent commit's):
+# calls whose three results differed, per call, on an H100 80GB HBM3 at 700 W
+# (`kernel_repeat loop --runs 12 --deterministic`: 1 of 600; this phase's
+# stress run: 707 of 3,741; PERF.md §6)
+PARENT_FAULTS_PER_CALL = {"loop": 1 / 600, "stress": 707 / 3741}
+REPEAT_LOOP_RUNS, REPEAT_STRESS_S, REPEAT_STRESS_CALLS = 2, 45.0, 6000
+REPEAT_MIN_EXPECTED = 5.0
+ALL_KERNELS = ("mlp_sdf_value", "mlp_sdf_jacobian", "mlp_sdf_value_f32", "mlp_sdf_jacobian_f32")
+
+
+def repeat_phase(smi):
+    """Phase 15 (see the module docstring) -> the report's "repeat" entry."""
+    from dsp_slam_rgbd_tpu_torch.tools import kernel_repeat as kr
+
+    t_phase = time.perf_counter()
+    runs = {"loop-fast": kr.loop_fast(1),
+            "stress": kr.stress(REPEAT_STRESS_CALLS, REPEAT_STRESS_S, kr.NOISE),
+            # last: it turns on the deterministic algorithms for the process
+            "loop": kr.loop(REPEAT_LOOP_RUNS, deterministic=True)}
+    for mode, s in runs.items():
+        for name, k in s["kernels"].items():
+            print(f"phase 15 {mode}: {name} {k['differ']} of {k['calls']} calls differ; "
+                  f"(calls, differ) by tiling {k['tilings']}; rows {k['rows']}", flush=True)
+    f32_jac = {m: s["kernels"].get("mlp_sdf_jacobian_f32", {"calls": 0})["calls"]
+               for m, s in runs.items()}
+    by_mode = {m: f32_jac[m] * rate for m, rate in PARENT_FAULTS_PER_CALL.items()}
+    expected = sum(by_mode.values())
+    rep = {"runs": {m: {k: s[k] for k in ("calls", "differ", "kernels", "findings")}
+                    for m, s in runs.items()},
+           "parent_expected_faults": expected, "parent_expected_faults_by_mode": by_mode,
+           "card": smi}
+    rep["phase_s"] = time.perf_counter() - t_phase
+    rounded = {m: round(e, 2) for m, e in by_mode.items()}
+    print(f"phase 15 the f32 Jacobian kernel without its proxy fence would have given "
+          f"{expected:.1f} faults ({rounded} by mode) in these {f32_jac} calls; "
+          f"phase 15 took {rep['phase_s']:.0f} s on {smi}", flush=True)
+    for m, s in runs.items():
+        check(s["differ"] == 0, f"15 {m}: every decoder kernel call repeats: {s['findings']}")
+    check(set(runs["loop"]["kernels"]) >= {"mlp_sdf_value_f32", "mlp_sdf_jacobian_f32"}
+          and set(runs["loop-fast"]["kernels"]) >= {"mlp_sdf_value", "mlp_sdf_jacobian"}
+          and set(runs["stress"]["kernels"]) == set(ALL_KERNELS),
+          f"15 all four kernels inside the loop and under stress: "
+          f"{ {m: sorted(s['kernels']) for m, s in runs.items()} }")
+    check(expected >= REPEAT_MIN_EXPECTED,
+          f"15 enough calls to catch the fault without the fence: {expected:.1f} expected")
+    return rep
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measured numbers to this JSON file")
@@ -3336,6 +3409,8 @@ def main(argv=None):
         # ---- 14. the benches and the aux tools
         report["tools"], paths14 = tools_phase(dev, smi, keep, report["main_path"]["fits_per_s"],
                                                report["system"]["cli_objects"]["ate_m"])
+    # ---- 15. every decoder kernel repeats bit for bit inside the loop and under stress
+    report["repeat"] = repeat_phase(smi)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "rows", "dtype")

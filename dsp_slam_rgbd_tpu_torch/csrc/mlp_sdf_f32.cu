@@ -36,12 +36,23 @@
 //   * Weights arrive by bulk asynchronous copy (cp.async.bulk) into a ring
 //     of 8 or 16 KB slots, issued by one producer thread (a ninth warp) and
 //     tracked by full/empty mbarriers, running across layer boundaries and
-//     from the forward into the backward sweep.  The host packs each
-//     sweep's weights once per decoder (`pack_value_tiles_f32`,
-//     `pack_backward_tiles_f32`) as the exact shared-memory image the
-//     consumers read: 128-column blocks, block-major over the whole stream,
-//     so a CTA's slice of a slot is 4/C contiguous copies of KS rows each;
-//     within a block, position 4 l + j holds column l + 32 j.
+//     from the forward into the backward sweep.  The consumers read a slot
+//     with generic loads and the refill writes it through the async proxy,
+//     so each consumer thread issues fence.proxy.async after its reads of
+//     a slot and before its warp arrives on "empty".  Without that fence
+//     the kernel did not repeat bit for bit: ptxas schedules the arrive
+//     ahead of the last loads of the slot (their FMAs after it), and when
+//     other kernels' blocks on the SM back up its memory pipe, the refill
+//     can land before those loads are served, so one warp multiplies part
+//     of the next slot's weights (its TM rows of one layer, or of the last
+//     product, come out wrong, finite): `tools/kernel_repeat.py stress`
+//     caught it in 1 of 5 Jacobian calls beside memory-bound kernels.  The
+//     host packs each sweep's weights once per decoder
+//     (`pack_value_tiles_f32`, `pack_backward_tiles_f32`) as the exact
+//     shared-memory image the consumers read: 128-column blocks,
+//     block-major over the whole stream, so a CTA's slice of a slot is 4/C
+//     contiguous copies of KS rows each; within a block, position 4 l + j
+//     holds column l + 32 j.
 //     The backward stream holds W[6]^T..W[0]^T and w0^T, already transposed.
 //   * Eight consumer warps: warp w computes TM = BM (4/C) / 8 rows by one
 //     128-column block, each lane 4 columns (l, l+32, l+64, l+96) for its
@@ -59,9 +70,11 @@
 //     CTA of the cluster computes in full, so every CTA has each row's
 //     g = 1 - sdf^2.  Layer 3's re-injected columns and step 4's
 //     re-injection gradient belong to the last slice: that gradient goes to
-//     the output rows, ordered cluster-wide by the later exchanges, and the
-//     last product (g w0^T, 128 outputs) is split by rows over the cluster
-//     and adds to it.
+//     the output rows in global memory, and the last product (g w0^T, 128
+//     outputs), split by rows over the cluster, adds to it.  What orders the
+//     store before the add: the consumers' named barrier at each later
+//     exchange within a CTA, and with C = 2 the exchanges' cluster-scope
+//     fence and mbarriers across the CTAs.
 //   * Codes are read per row as code[row / rows_per_code]: one launch covers
 //     a batch of objects, a shared code or per-row codes.  The last tile is
 //     masked.  Every wait traps after about 2^33 cycles instead of hanging.
@@ -279,7 +292,9 @@ __device__ __forceinline__ void produce(const Args& a, float* ring, Ring rg, int
 // acc[m][j] = sum_k A[k][m] B[k][j] over nslots slots of KS rows: A k-major
 // at a (row stride LD, this warp's first row), B the ring's next slots from
 // float b of each (this warp's block, this lane's 4 columns).  Each warp
-// releases a slot once its reads are done.
+// releases a slot once its reads are done: every lane's proxy fence orders
+// its generic reads of the slot before the producer's refill through the
+// async proxy, which the arrive alone does not (see the note at the top).
 template <int TM, int KS, int NSLOT, int LD, int SLOT_FLOATS>
 __device__ __forceinline__ void product(float (&acc)[TM][4], const float* a, int nslots,
                                         const float* b, Ring& rg, int lane) {
@@ -314,6 +329,7 @@ __device__ __forceinline__ void product(float (&acc)[TM][4], const float* a, int
         }
       }
     }
+    fence_proxy_async();
     __syncwarp();
     if (lane == 0) mbar_arrive(rg.empty + 8 * rg.slot);
     rg.advance<NSLOT>();

@@ -34,6 +34,18 @@ class KernelBuildError(RuntimeError):
     pass
 
 
+def use_sources(csrc: str) -> None:
+    """Build from the kernel sources in `csrc` (another checkout's `csrc/`,
+    whose C interface is this one's) instead of this package's.  The
+    library's name hashes the sources, so both builds share `_build/`.
+    Only before the first `load` of the process."""
+    global CSRC
+    with _lock:
+        if _lib is not None:
+            raise RuntimeError("the kernel library is already loaded")
+        CSRC = os.path.abspath(csrc)
+
+
 def _nvcc() -> str:
     for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
                  "/usr/local/cuda/bin/nvcc"):

@@ -21,7 +21,11 @@ from `tools/` as tests/test_format_bridges.py does) and the port's
     JAX `deepsdf.apply` loss at 1e-5 relative; 30 narrow steps lower the
     loss; the written npz loads through both packages.
 Every tool but the host-only label converter raises without a card
-unless given `--device cpu`.
+unless given `--device cpu`.  `kernel_repeat` (a check for the card only)
+is tested on its bookkeeping: stand-ins for the kernel wrappers whose call
+flips bits in some rows are reported with the call, rows, tile rows and
+columns, and counted per kernel and tiling; `--csrc` points the build at
+another directory.
 """
 import importlib
 import json
@@ -448,9 +452,97 @@ def test_train_fixture_decoder_lowers_the_loss_and_writes_the_npz(tmp_path):
     (t_render, ["map", "out"]),
     (t_train, ["--steps", "1"]),
     (t_repeat, ["loop"]),
+    (t_repeat, ["loop-fast"]),
+    (t_repeat, ["stress"]),
 ])
 def test_tools_default_to_the_card(tool, argv):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tool.main(argv)
+
+
+# ---------------------------------------------------------------------------
+# kernel_repeat's bookkeeping, over stand-ins for the kernels
+
+def stand_in_kernel(jacobian, flips):
+    """A deterministic stand-in for a decoder kernel wrapper whose call
+    number c (counted from 0) flips the lowest bit of its last output's
+    rows flips[c]."""
+    count = [0]
+
+    def kernel(wb, code, xyz, compute_dtype=torch.float32, tiles=None):
+        n = xyz.reshape(-1, 3).shape[0]
+        sdf = xyz.reshape(n, 3).sum(1)
+        grad = torch.arange(n * 67, dtype=torch.float32).reshape(n, 67) / 7.0
+        rows = flips.get(count[0], [])
+        count[0] += 1
+        if rows:
+            (grad if jacobian else sdf).view(torch.int32)[rows] ^= 1
+        return (sdf, grad) if jacobian else sdf
+
+    return kernel
+
+
+@pytest.mark.parametrize("odd", [0, 1, 2])
+def test_kernel_repeat_reports_the_call_and_rows_that_differ(monkeypatch, odd):
+    monkeypatch.setattr(t_repeat.mlp_sdf, "sdf_and_input_jacobian_fused",
+                        stand_in_kernel(True, {odd: [48, 49, 50, 51]}))
+    monkeypatch.setattr(t_repeat, "tiling_of", lambda kind, dtype, n: "32x1")
+    xyz = torch.ones(96, 3)
+    with t_repeat.repeating(t_repeat.Tally()) as tally:
+        sdf, grad = t_repeat.mlp_sdf.sdf_and_input_jacobian_fused(None, None, xyz)
+    assert sdf.shape == (96,) and grad.shape == (96, 67)
+    summary = tally.summary("test")
+    assert (summary["calls"], summary["differ"]) == (1, 1)
+    (found,) = summary["findings"]
+    assert found["kernel"] == "mlp_sdf_jacobian_f32" and found["tiling"] == "32x1"
+    assert found["output"] == 1 and found["call"] == odd and found["two_agree"]
+    assert found["rows"] == [48, 49, 50, 51] and found["n_rows"] == 4
+    assert found["tile_rows"] == [16, 17, 18, 19] and found["cols"] == list(range(67))
+    assert 0 < found["max_abs"] < 1e-3 and not found["nan"]
+
+
+def test_kernel_repeat_counts_calls_per_kernel_and_tiling(monkeypatch):
+    for name, jac in (("sdf_value_fused", False), ("sdf_and_input_jacobian_fused", True)):
+        # each wrapper's fifth call, the second of its second repeated call, flips row 3
+        monkeypatch.setattr(t_repeat.mlp_sdf, name, stand_in_kernel(jac, {4: [3]}))
+    monkeypatch.setattr(t_repeat, "tiling_of",
+                        lambda kind, dtype, n: "64x1" if dtype == torch.bfloat16
+                        else "32x1" if n > 64 else "32x2")
+    with t_repeat.repeating(t_repeat.Tally()) as tally:
+        for n in (64, 100, 100):
+            for dtype in (torch.float32, torch.bfloat16):
+                t_repeat.mlp_sdf.sdf_value_fused(None, None, torch.ones(n, 3), dtype)
+            t_repeat.mlp_sdf.sdf_and_input_jacobian_fused(None, None, torch.ones(n, 3))
+    summary = tally.summary("test")
+    kernels = summary["kernels"]
+    assert set(kernels) == {"mlp_sdf_value", "mlp_sdf_value_f32", "mlp_sdf_jacobian_f32"}
+    assert (summary["calls"], summary["differ"]) == (9, 2)
+    assert kernels["mlp_sdf_jacobian_f32"] == {
+        "calls": 3, "differ": 1, "tilings": {"32x2": [1, 0], "32x1": [2, 1]}, "rows": [64, 100]}
+    # the value wrapper's second repeated call is the bf16 one at n = 64
+    assert kernels["mlp_sdf_value"] == {
+        "calls": 3, "differ": 1, "tilings": {"64x1": [3, 1]}, "rows": [64, 100]}
+    assert kernels["mlp_sdf_value_f32"]["differ"] == 0
+    assert [(f["kernel"], f["n"], f["rows"], f["tile_rows"]) for f in summary["findings"]] == [
+        ("mlp_sdf_value", 64, [3], [3]), ("mlp_sdf_jacobian_f32", 100, [3], [3])]
+
+
+def test_kernel_sources_from_another_checkout(monkeypatch, tmp_path):
+    """`--csrc DIR` builds another checkout's kernel sources, into this
+    package's `_build/`, and only before the library is loaded."""
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import build
+
+    for name in ("CSRC", "BUILD_DIR", "_lib"):
+        monkeypatch.setattr(build, name, getattr(build, name))
+    for name in ("a.cu", "b.cuh", "notes.txt"):
+        (tmp_path / name).write_text("")
+    build._lib = None
+    build_dir = build.BUILD_DIR
+    build.use_sources(str(tmp_path))
+    assert build.sources() == [str(tmp_path / "a.cu"), str(tmp_path / "b.cuh")]
+    assert build.BUILD_DIR == build_dir
+    build._lib = object()
+    with pytest.raises(RuntimeError, match="already loaded"):
+        build.use_sources(str(tmp_path))
