@@ -14,8 +14,9 @@ adjustment at KITTI-00 scale (phases 9b and 9c), and the keyframe
 the SLAM loop (phase 10), the mono object pipeline (10c), monocular
 initialization and loop closing (phase 11), the system loop and its
 command line (phase 12), the scale-out tier and active mapping
-(phase 13), the benches and aux tools (phase 14), and whether every
-decoder kernel repeats bit for bit inside the loop (phase 15).  Exits
+(phase 13), the benches and aux tools (phase 14), whether every
+decoder kernel repeats bit for bit inside the loop (phase 15), and a loop
+closing at KITTI size with objects through the command line (phase 16).  Exits
 non-zero, with no result line, if there is no card or any phase fails.
 Prints, before the last line, the card's name and power limit and one
 JSON line of kernel numbers; the last line is {"ok": true, "device":
@@ -141,7 +142,12 @@ tests/tracking_driver.py's "mono", "loop" and "reloc" stages:
     `MappingStage.process` at every keyframe: initialized, >= 60% of frames
     OK, >= 2 keyframes, Sim(3)-aligned ATE under 8% of the path (the JAX
     test's bars); ms of the initialization step and of its RANSAC alone,
-    ms per frame, host syncs with the line that makes each.
+    ms per frame, host syncs with the line that makes each.  Then the same
+    14 frames of the bare KITTI plane (`plane_world.KITTI`, no floor),
+    held to the JAX package's outcome there (JAX_MONO_PLANE: it never
+    initializes, so the port must not either, and must raise nothing;
+    had it initialized, the port would have to within 2 frames, with an
+    ATE within 1.5x).
   * a vocabulary of 10^4 words (branching 10, depth 4) trained here on
     110,000 descriptors as tests/test_vocab_scale.py makes them;
   * 11b: phase 8's 24 stereo frames with `MappingStage(vocab=...)` at every
@@ -319,6 +325,29 @@ results are not equal bit for bit:
   power is stress's (~700 expected faults); the loop runs' ~100 f32
   Jacobian calls expect ~0.2 at the loop's rate, and the loops are there
   to cover the bf16 pair and the f32 call sizes the SLAM loop makes.
+
+Phase 16 writes `tools/sequence_dirs.py::write_kitti_circuit`'s directory
+(`tools/loop_world.py`'s KITTI-size circuit: 105 1241x376 stereo frames
+of an ellipse whose return leg meets lap 1's start only through place
+recognition, six static objects' label files) and runs the port's
+command line over it on the card with the command line's default
+`async_kf_frames` (the closure runs in the mapping worker on its own
+stream), with the arguments of `tests/tracking_driver.py circuit`, whose
+JAX run on the CPU over the same files is JAX_CIRCUIT; both load the
+10^4-word vocabulary the JAX command line bootstrapped over those files
+(`tracking_driver.CIRCUIT_VOCAB`).  Wrapped as 12c
+wraps its system (`correct_loop` timed on the worker's stream, `_adopt`
+watched for the point remap, `MappingStage.process` checked for in-place
+writes), it checks a row for every frame, > 90% OK, no keyframe dropped,
+>= 1 closure adopted with its remap, the ATE, the lap gap and the
+largest lap-2 error within 1.5x JAX_CIRCUIT's, every static truth within
+0.3 m of a map object, no truth with two map objects within 1.5 m, no
+more map objects than JAX's, and both f32 kernels launched.  It prints
+fps, track ms p50/p90/p99, `correct_loop`'s ms in the worker and its
+launches and host syncs (its first call again on the same inputs, as 11c
+counts them), the frame ms at the adoption and the ms blocked in
+`_adopt` and `_prewait_mapping`; its f32 launches join
+`launches_by_path`.
 """
 import argparse
 import contextlib
@@ -1451,6 +1480,16 @@ def mono_phase(dev, dec, dec_cpu, smi):
 
 # ---------------------------------------------------------------------------
 # phase 11: monocular initialization and loop closing
+# ---------------------------------------------------------------------------
+# the JAX package's mono tracker with the keyframe stage on the bare KITTI plane
+# (`plane_world.KITTI`, the wall without its floor), 11a's 14 frames, OrbConfig() and
+# phase 8's configuration, on the CPU (`JAX_PLATFORMS=cpu python tests/tracking_driver.py
+# mono-plane`): it never initializes (a single plane leaves the homography's two motions
+# to choose from), so no frame is tracked, no keyframe made, and no ATE
+JAX_MONO_PLANE = {"init_frame": -1, "ok_share": 0.0, "ate_m": None, "keyframes": 0}
+# 11a's bars on the bare plane against JAX_MONO_PLANE, when it initializes: the first
+# tracked frame within this many frames of JAX's, the ATE within 1.5x JAX's
+MONO_PLANE_FRAMES, MONO_PLANE_BAND = 2, 1.5
 
 
 def _timed(fn, times, name):
@@ -1492,6 +1531,42 @@ def aliased_descriptors(rng, n_train=110_000, n_kf=100, per_kf=256):
     kfs = [np.concatenate([perturb(pool[rng.choice(2000, per_kf // 2, replace=False)]),
                            perturb(place[k if k < 60 else k - 60])]) for k in range(n_kf)]
     return np.concatenate(kfs + [rand(n_train - n_kf * per_kf)])
+
+
+def mono_plane_step(dev, smi, n=14):
+    """11a on the bare KITTI plane: the mono tracker with the keyframe stage
+    over `plane_world.KITTI`'s first n frames, held to JAX_MONO_PLANE."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import tracking_driver as td
+    from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
+    from dsp_slam_rgbd_tpu_torch.mapping import map_state as ms
+    from dsp_slam_rgbd_tpu_torch.system import mapping_stage as mstage
+    from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw
+    from dsp_slam_rgbd_tpu_torch.tracking import tracker as trk
+
+    t0 = time.perf_counter()
+    tr_p, n_kf_p, _ = td.drive(ms, lm, trk, tracking_config(pw.KITTI, "mono"),
+                               td.frames(pw.KITTI, pw.make_texture(pw.KITTI), "mono", n, u8=True),
+                               code_len=64, stage="mono", objects=td.loop_inputs(mstage, True),
+                               device=dev)
+    torch.cuda.synchronize()
+    plane = dict(td.mono_outcome(pw.KITTI, tr_p.trajectory, n), keyframes=n_kf_p,
+                 s=time.perf_counter() - t0)
+    jp = JAX_MONO_PLANE
+    if jp["init_frame"] < 0:
+        check(plane["init_frame"] < 0 and n_kf_p == 0,
+              f"11a bare KITTI plane: no initialization, as the JAX package's {jp}: {plane}")
+    else:
+        check(plane["init_frame"] >= 0
+              and abs(plane["init_frame"] - jp["init_frame"]) <= MONO_PLANE_FRAMES
+              and plane["ate_m"] is not None and plane["ate_m"] <= MONO_PLANE_BAND * jp["ate_m"],
+              f"11a bare KITTI plane: initialized within {MONO_PLANE_FRAMES} frames of the JAX "
+              f"package's, ATE within {MONO_PLANE_BAND}x: {plane} against {jp}")
+    print(f"phase 11a mono on the bare KITTI plane (plane_world.KITTI, no floor, {n} frames): "
+          f"initialized at frame {plane['init_frame']} (JAX on the CPU: {jp['init_frame']}; -1 "
+          f"is never), ok {plane['ok_share']:.3f}, {n_kf_p} keyframes, ATE {plane['ate_m']} m "
+          f"(JAX {jp['ate_m']}); {plane['s']:.1f} s on {smi}", flush=True)
+    return plane
 
 
 def loop_phase(dev, smi):
@@ -1579,6 +1654,9 @@ def loop_phase(dev, smi):
           f"syncs; {one_ms:.1f} ms mean of 3), its RANSAC alone {ransac_ms:.1f} ms "
           f"({ransac_syncs} host syncs: {ransac_sites}); the step's syncs by line: "
           f"{init_sites}; {frame_syncs} host syncs in a tracking frame on {smi}", flush=True)
+
+    # ---- 11a on the bare KITTI plane, held to the JAX package's outcome there
+    rep["mono_plane"] = mono_plane_step(dev, smi, n)
 
     # ---- vocabulary: depth 4, branching 10, trained here
     t0 = time.perf_counter()
@@ -3075,6 +3153,192 @@ def repeat_phase(smi):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phase 16: a loop closes at KITTI size with objects through the command line
+# ---------------------------------------------------------------------------
+# the JAX package's command line on the CPU over phase 16's directory with phase 16's
+# arguments and the port's feature slots (`JAX_PLATFORMS=cpu python
+# tests/tracking_driver.py circuit DIR`, the world frozen before the port's first card
+# run), both runs loading the vocabulary the JAX command line bootstrapped there
+# (`tracking_driver.CIRCUIT_VOCAB`; with its own, JAX closes as the port does with the
+# port's: the vocabulary, not the loop path, moves these numbers):
+# the ATE of CameraTrajectory_TUM.txt's rows after a rigid alignment, the largest
+# translation error, the gap between frames 0 and 90, the largest lap-2 error against
+# lap 1, the closures, keyframes and dropped keyframes, the map objects, and each static
+# truth's nearest map object (m), and the map objects within 1.5 m of each truth.
+# The lap gap moves with the vocabulary: JAX's own bootstrap with k-medians seeds 1-3
+# (`circuit DIR --train --seed S`) closes at 0.003378, 0.011437 and 0.018885 m (ATE
+# 0.0229 m, lap-2 0.0418-0.0457 m), so the gap's band holds for this vocabulary only
+JAX_CIRCUIT = {"rows": 105, "ate_m": 0.02401210181415081, "max_err_m": 0.09534947330267496,
+               "lap_gap_m": 0.013105206973565889, "lap2_max_m": 0.04282593765511781,
+               "loop_closures": 1, "keyframes": 31, "kf_slots_exhausted": 0, "map_objects": 6,
+               "truth_nearest_m": [0.013450478533414047, 0.027309904655167014,
+                                   0.025082025021968803, 0.017401720353472417,
+                                   0.03244585199036251, 0.03542012767798931],
+               "truth_objects_within_1_5m": [1, 1, 1, 1, 1, 1]}
+# phase 16's bars against JAX_CIRCUIT: 12a's band on the ATE, the lap gap and the
+# lap-2 error; 12a's 0.3 m on each truth's nearest map object;
+# `fuse_duplicate_objects`' 1.5 m
+CIRCUIT_BAND, CIRCUIT_OBJ_M, CIRCUIT_FUSE_M = 1.5, 0.3, 1.5
+
+
+def circuit_phase(dev, smi):
+    """Phase 16: the port's command line over `write_kitti_circuit`'s
+    directory on the card with the default `async_kf_frames`, held to
+    JAX_CIRCUIT -> (the report's "circuit" entry, {path: decoder launches})."""
+    import shutil
+    from unittest import mock
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import tracking_driver as td
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
+    from dsp_slam_rgbd_tpu_torch.system import mapping_stage as mstage
+    from dsp_slam_rgbd_tpu_torch.system import slam
+    from dsp_slam_rgbd_tpu_torch.tools import run_slam
+    from dsp_slam_rgbd_tpu_torch.tools import sequence_dirs as sd
+
+    t_phase = time.perf_counter()
+    correct_ms, correct_calls, adopted, unchanged, prewait = [], [], [], [], {}
+    correct_loop = mstage.loop_closing.correct_loop
+    adopt, process, prewait_mapping = (slam.SLAMSystem._adopt, mstage.MappingStage.process,
+                                       slam.SLAMSystem._prewait_mapping)
+
+    def timed_correct_loop(*a, **k):   # on the worker's thread and stream
+        torch.cuda.current_stream().synchronize()
+        t = time.perf_counter()
+        r = correct_loop(*a, **k)
+        torch.cuda.current_stream().synchronize()
+        correct_ms.append((time.perf_counter() - t) * 1e3)
+        correct_calls[:] = correct_calls or [(a, k)]   # the first call's inputs
+        return r
+
+    def watched_adopt(self, entry):
+        b = self.blocked_ms["adopt"]
+        adopt(self, entry)
+        res = entry[1]["result"]
+        if res.pt_remap is not None:
+            adopted.append({"frame": self.tracker.frame_id + 1, "kid": res.kid,
+                            "blocked_ms": self.blocked_ms["adopt"] - b})
+
+    def watched_prewait(self):
+        b = self.blocked_ms["prewait"]
+        prewait_mapping(self)
+        prewait[self.tracker.frame_id] = self.blocked_ms["prewait"] - b   # the frame tracked
+
+    def checked_process(self, job):   # no job writes its input state's tensors in place
+        state = self.state
+        before = [getattr(state, k)._version for k in state._fields]
+        res = process(self, job)
+        unchanged.append([getattr(state, k)._version for k in state._fields] == before)
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = sd.write_kitti_circuit(os.path.join(tmp, "circuit"))
+        write_s = time.perf_counter() - t0
+        out = os.path.join(tmp, "out16")
+        vocab = os.path.join(tmp, "vocab16.npz")   # loaded: the JAX run's, as JAX_CIRCUIT's
+        shutil.copy(td.CIRCUIT_VOCAB, vocab)
+        mlp_sdf.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(mstage.loop_closing, "correct_loop", timed_correct_loop), \
+                mock.patch.object(slam.SLAMSystem, "_adopt", watched_adopt), \
+                mock.patch.object(slam.SLAMSystem, "_prewait_mapping", watched_prewait), \
+                mock.patch.object(mstage.MappingStage, "process", checked_process):
+            res = run_slam.main(td.circuit_args(paths, out, vocab))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(mlp_sdf.LAUNCHES)
+        got = td.circuit_metrics(paths, out)
+    system, summ = res["system"], res["summary"]
+    ok = np.array([bool(o) for _, _, o in system.tracker.trajectory])
+    ms_ = np.asarray(res["track_ms"])
+    at_adoption = [float(ms_[a["frame"]]) for a in adopted if a["frame"] < len(ms_)]
+    # correct_loop's launches and host syncs: its first call again on its own
+    # inputs, on this thread (the worker's call shared the card with the
+    # tracker's thread); syncs as 11c counts them, launches from a trace of
+    # the card's kernels only, as 12a traces (the host's ops of ~70,000
+    # launches would take the tracer a minute)
+    t0 = time.perf_counter()
+    cl_launches, cl_busy, cl_syncs = 0, 0.0, 0
+    if correct_calls:
+        from torch.profiler import ProfilerActivity, profile
+
+        a, k = correct_calls[0]
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile(activities=[ProfilerActivity.CUDA]) as p:
+                correct_loop(*a, **k)
+                torch.cuda.synchronize()
+            p.export_chrome_trace(os.path.join(tmp, "correct_loop.json"))
+            kern = _kernels(os.path.join(tmp, "correct_loop.json"))
+        cl_launches, cl_busy = len(kern), sum(float(e.get("dur", 0.0)) for e in kern) / 1e3
+        _, cl_syncs = with_syncs(lambda: correct_loop(*a, **k))
+    replay_s = time.perf_counter() - t0
+    rep = {"card": smi, "frames": got["frames"], "rows": got["rows"], "ok_share": float(ok.mean()),
+           **{key: got[key] for key in ("ate_m", "max_err_m", "lap_gap_m", "lap2_max_m",
+                                        "loop_closures", "keyframes", "kf_slots_exhausted",
+                                        "map_objects", "truth_nearest_m",
+                                        "truth_objects_within_1_5m")},
+           "summary": summ, "jax_circuit_cpu": JAX_CIRCUIT, "remaps_adopted": adopted,
+           "correct_loop_ms": correct_ms, "correct_loop_launches": cl_launches,
+           "correct_loop_busy_ms": cl_busy, "correct_loop_host_syncs": cl_syncs,
+           "frame_ms_at_adoption": at_adoption,
+           # the job adopted at frame A is waited for in frames A-2 and A-1
+           # (`_prewait_mapping` takes the job due by the frame after next)
+           "prewait_ms_before_adoption": [[prewait.get(a["frame"] - d, 0.0) for d in (2, 1)]
+                                          for a in adopted],
+           "frame_ms_before_adoption": [[float(ms_[a["frame"] - d]) for d in (2, 1)]
+                                        for a in adopted],
+           "blocked_ms": res["blocked_ms"], "frame_ms_median": _median(ms_),
+           "track_ms": ms_.tolist(), "kf_frames": res["kf_frames"], "launches": launches,
+           "write_s": write_s, "run_s": run_s, "replay_s": replay_s}
+    rep["phase_s"] = time.perf_counter() - t_phase
+    jc = JAX_CIRCUIT
+    print(f"phase 16 loop circuit at KITTI size (loop_world.KITTI: {got['frames']} 1241x376 "
+          f"stereo frames, 6 static objects' label files, fixture decoder, the 10^4-word "
+          f"vocabulary the JAX command line bootstrapped from {td.CIRCUIT_VOCAB_FRAMES} frames, "
+          f"async_kf_frames "
+          f"{system.cfg.async_kf_frames}): {summ['fps']} fps, track ms p50/p90/p99 "
+          f"{summ['track_ms_p50']}/{summ['track_ms_p90']}/{summ['track_ms_p99']}; ok "
+          f"{ok.mean():.3f}, {got['keyframes']} keyframes, {got['loop_closures']} closure(s), "
+          f"remaps adopted at {adopted}; correct_loop in the worker "
+          f"{', '.join(f'{x:.1f}' for x in correct_ms)} ms, {cl_launches} launches (busy "
+          f"{cl_busy:.1f} ms), {cl_syncs} host syncs; frame ms at the adoption "
+          f"{', '.join(f'{x:.1f}' for x in at_adoption)} (median frame "
+          f"{rep['frame_ms_median']:.1f}), the two frames before it "
+          f"{rep['frame_ms_before_adoption']} ms, waiting in _prewait_mapping "
+          f"{rep['prewait_ms_before_adoption']} ms; blocked in _adopt "
+          f"{res['blocked_ms']['adopt']:.1f} ms, in _prewait_mapping "
+          f"{res['blocked_ms']['prewait']:.1f} ms over the run", flush=True)
+    print(f"phase 16 against the JAX command line on the CPU: ATE {got['ate_m']:.6f} m (JAX "
+          f"{jc['ate_m']:.6f}), largest error {got['max_err_m']:.6f} m (JAX "
+          f"{jc['max_err_m']:.6f}), lap gap {got['lap_gap_m']:.6f} m (JAX {jc['lap_gap_m']:.6f}), "
+          f"lap-2 {got['lap2_max_m']:.6f} m (JAX {jc['lap2_max_m']:.6f}); {got['map_objects']} "
+          f"map objects (JAX {jc['map_objects']}), each truth's nearest "
+          f"{', '.join(f'{d:.4f}' for d in got['truth_nearest_m'])} m, map objects within "
+          f"{CIRCUIT_FUSE_M} m {got['truth_objects_within_1_5m']}; decoder launches {launches}; "
+          f"write {write_s:.1f} s, run {run_s:.1f} s, correct_loop again {replay_s:.1f} s, "
+          f"phase {rep['phase_s']:.0f} s on {smi}",
+          flush=True)
+    # the bars, after the numbers are printed
+    check(got["rows"] == got["frames"] and ok.mean() > 0.9 and got["kf_slots_exhausted"] == 0,
+          f"16 a row for every frame, > 90% tracked, no keyframe dropped: {rep}")
+    check(got["loop_closures"] >= 1 and adopted, f"16 a closure adopted with its remap: {rep}")
+    for key in ("ate_m", "lap_gap_m", "lap2_max_m"):
+        check(got[key] <= CIRCUIT_BAND * jc[key], f"16 {key} {got[key]} within "
+              f"{CIRCUIT_BAND}x the JAX command line's {jc[key]}")
+    check(max(got["truth_nearest_m"]) < CIRCUIT_OBJ_M,
+          f"16 every static truth within {CIRCUIT_OBJ_M} m of a map object: {rep}")
+    check(max(got["truth_objects_within_1_5m"]) <= 1 and got["map_objects"] <= jc["map_objects"],
+          f"16 no truth left with two map objects within {CIRCUIT_FUSE_M} m, no more map "
+          f"objects than the JAX command line's {jc['map_objects']}: {rep}")
+    check(unchanged and all(unchanged),
+          f"16 no MapState tensor written in place by a job: {unchanged}")
+    check(launches["mlp_sdf_value_f32"] > 0 and launches["mlp_sdf_jacobian_f32"] > 0,
+          f"16 both f32 kernels launched from the command line's run: {launches}")
+    return rep, {"16 loop circuit at KITTI size": launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measured numbers to this JSON file")
@@ -3411,6 +3675,8 @@ def main(argv=None):
                                                report["system"]["cli_objects"]["ate_m"])
     # ---- 15. every decoder kernel repeats bit for bit inside the loop and under stress
     report["repeat"] = repeat_phase(smi)
+    # ---- 16. a loop closes at KITTI size with objects through the command line
+    report["circuit"], paths16 = circuit_phase(dev, smi)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "rows", "dtype")
@@ -3429,9 +3695,10 @@ def main(argv=None):
              small={k: v for k, v in t_jac_sdf.items() if k in keys}),
     ] + kernels_f32
     # `launches`: the kernel's main path (phase 4 for bf16, phase 10 for f32);
-    # beside it, its count on each path of phases 13 and 14
+    # beside it, its count on each path of phases 13, 14 and 16
     for k in kernels:
-        k["launches_by_path"] = {path: n[k["name"]] for path, n in {**paths13, **paths14}.items()}
+        k["launches_by_path"] = {path: n[k["name"]]
+                                 for path, n in {**paths13, **paths14, **paths16}.items()}
     if opts.report:
         os.makedirs(os.path.dirname(os.path.abspath(opts.report)), exist_ok=True)
         with open(opts.report, "w") as f:

@@ -2,7 +2,8 @@
 
 The object stage's fixture, beside `plane_world.py`: the camera of a
 `plane_world.World` translates along x (frame i at world x = gt_x(i),
-no rotation), and `Truth` objects of the family that
+no rotation; a `loop_world.Circuit`'s drives its ellipse in x and y),
+and `Truth` objects of the family that
 `tests/fixtures/ellipsoid_decoder_64.npz` was trained on
 (`ellipsoid.code_to_axes`, scale 2, up = −y) stand in front of it, static
 or moving at a constant world velocity.  `detections` builds each visible
@@ -77,11 +78,10 @@ def small_objects(seed: int = 0) -> list:
 
 
 def t_cw(world, frame: int) -> np.ndarray:
-    """The true (4, 4) world→camera pose of `frame` in a plane world."""
-    from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw
-
+    """The true (4, 4) world→camera pose of `frame` in a plane world or a
+    circuit (R = I, the camera at `world.center(frame)`)."""
     T = np.eye(4)
-    T[0, 3] = -pw.gt_x(world, frame)
+    T[:3, 3] -= world.center(frame)
     return T
 
 

@@ -40,6 +40,10 @@ class World(NamedTuple):
     def cy(self):
         return self.h / 2
 
+    def center(self, frame: int) -> np.ndarray:
+        """The true camera center of `frame`, (gt_x, 0, 0)."""
+        return np.array([gt_x(self, frame), 0.0, 0.0])
+
 
 SMALL = World(h=160, w=224, fx=200.0, baseline=0.5, plane_z=10.0, tilt=0.35,
               step=0.12, tex_scale=80.0, tex_size=2048)

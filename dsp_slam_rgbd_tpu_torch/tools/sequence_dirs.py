@@ -10,11 +10,14 @@ PNG codec (numpy and zlib only):
   * `write_rgbd`: rgb/ uint8 images and depth/ 16-bit millimetre PNGs;
   * `write_mono`: a directory of uint8 images;
 
-and `write_yaml`, the reference-style camera yaml of a world.  As a
-script it writes the directory of `chip_smoke.py` phase 12a, so that the
-JAX package can run the same files (`tests/tracking_driver.py cli DIR`):
+and `write_yaml`, the reference-style camera yaml of a world;
+`write_kitti_objects` and `write_kitti_circuit` write whole directories.
+As a script it writes the directory of `chip_smoke.py` phase 12a (or,
+with `--circuit`, phase 16's KITTI-size loop circuit), so that the JAX
+package can run the same files (`tests/tracking_driver.py cli DIR`,
+`circuit DIR`):
 
-    python -m dsp_slam_rgbd_tpu_torch.tools.sequence_dirs DIR
+    python -m dsp_slam_rgbd_tpu_torch.tools.sequence_dirs DIR [--circuit]
 """
 from __future__ import annotations
 
@@ -98,11 +101,12 @@ def write_mono(root: str, world: pw.World, texture, n: int) -> None:
 
 def write_yaml(path: str, world: pw.World, fps: float = 10.0, th_depth: float = 35.0,
                n_features: int = 2000, n_levels: int = 8) -> None:
-    """A reference-style camera yaml for `world` (`config.from_reference_yaml_json`
-    in either package; max_frames_between_kf becomes int(fps))."""
+    """A reference-style camera yaml for `world`, a `plane_world.World` or a
+    `loop_world.Circuit` (`config.from_reference_yaml_json` in either
+    package; max_frames_between_kf becomes int(fps))."""
     with open(path, "w") as f:
-        f.write(f"Camera.fx: {world.fx}\nCamera.fy: {world.fx}\nCamera.cx: {world.cx:.1f}\n"
-                f"Camera.cy: {world.cy:.1f}\nCamera.bf: {world.fx * world.baseline}\n"
+        f.write(f"Camera.fx: {world.fx}\nCamera.fy: {world.fx}\nCamera.cx: {world.cx}\n"
+                f"Camera.cy: {world.cy}\nCamera.bf: {world.fx * world.baseline}\n"
                 f"Camera.fps: {fps:.1f}\nThDepth: {th_depth:.1f}\n"
                 f"ORBextractor.nFeatures: {n_features}\nORBextractor.nLevels: {n_levels}\n"
                 "ORBextractor.scaleFactor: 1.2\nORBextractor.iniThFAST: 20\n"
@@ -130,10 +134,59 @@ def write_kitti_objects(root: str) -> dict:
     return paths
 
 
+def write_kitti_circuit(root: str, n_frames: int | None = None) -> dict:
+    """chip_smoke.py phase 16's directory: `loop_world.KITTI`'s circuit
+    (105 1241x376 stereo frames) as image_2/ and image_3/, calib.txt,
+    gt.txt (the true T_wc rows, R = I), one label npz a frame of the six
+    static objects of `loop_world.kitti_objects` (256 points and 512 rays
+    a detection), and a yaml of `OrbConfig()`'s 2,000 features in 8
+    levels, ThDepth 35, Camera.fps 10 (KITTI's); `n_frames` cuts the
+    circuit to its first frames.  Up to 8 threads render the images
+    (numpy releases the interpreter lock).  -> the paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dsp_slam_rgbd_tpu_torch.system import detections as det_mod
+    from dsp_slam_rgbd_tpu_torch.tools import loop_world as lw
+    from dsp_slam_rgbd_tpu_torch.tools import object_world as ow
+
+    c = lw.KITTI
+    paths = {"seq": os.path.join(root, "seq"), "labels": os.path.join(root, "labels"),
+             "yaml": os.path.join(root, "cam.yaml")}
+    paths["gt"] = os.path.join(paths["seq"], "gt.txt")
+    for d in (paths["labels"], os.path.join(paths["seq"], "image_2"),
+              os.path.join(paths["seq"], "image_3")):
+        os.makedirs(d, exist_ok=True)
+    texture, truths = lw.circuit_texture(c), lw.kitti_objects()
+    xys = c.path()[:n_frames]
+
+    def write_frame(i):
+        for sub, img in zip(("image_2", "image_3"), lw.stereo_pair(c, texture, i)):
+            png.write_png(os.path.join(paths["seq"], sub, _name(i)),
+                          np.clip(img, 0, 255).astype(np.uint8))
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+        list(ex.map(write_frame, range(len(xys))))
+    for i in range(len(xys)):
+        dets, _ = ow.frame_detections(det_mod, c, truths, i, KITTI_OBJECTS_PTS,
+                                      KITTI_OBJECTS_RAYS)
+        save_label_file(os.path.join(paths["labels"], f"{i:06d}.npz"), dets)
+    with open(os.path.join(paths["seq"], "calib.txt"), "w") as f:
+        f.write(KITTI_CALIB)
+    with open(paths["gt"], "w") as f:
+        for x, y in xys:
+            f.write(f"1 0 0 {x:.9e} 0 1 0 {y:.9e} 0 0 1 0\n")
+    write_yaml(paths["yaml"], c, fps=10.0)
+    return paths
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root", help="directory to write chip_smoke.py phase 12a's files into")
-    paths = write_kitti_objects(ap.parse_args(argv).root)
+    ap.add_argument("--circuit", action="store_true",
+                    help="write phase 16's KITTI-size loop circuit instead")
+    args = ap.parse_args(argv)
+    paths = write_kitti_circuit(args.root) if args.circuit \
+        else write_kitti_objects(args.root)
     for k, v in paths.items():
         print(f"{k}: {v}")
 

@@ -49,6 +49,22 @@ objects' center errors, the numbers 12a's bands come from (~5 min):
 
     JAX_PLATFORMS=cpu python tests/tracking_driver.py cli DIR
 
+With `circuit DIR` it writes `chip_smoke.py` phase 16's KITTI-size loop
+circuit into DIR (`tools/sequence_dirs.py::write_kitti_circuit`) and runs
+the JAX command line over it with phase 16's arguments (`circuit_args`:
+the labels, the fixture decoder, the vocabulary CIRCUIT_VOCAB, --gt) and
+the port's feature slots, and prints what `circuit_metrics` reads: the
+ATE, the largest error, the lap gap and lap-2 error, the closures,
+keyframes and dropped keyframes, the map objects and each static truth's
+nearest one, the numbers of `chip_smoke.JAX_CIRCUIT` (~6 min); with
+`--train` it bootstraps the vocabulary (25 frames, 10^4 words) as
+CIRCUIT_VOCAB was made, with k-medians seeded by `--seed S` (0, as
+CIRCUIT_VOCAB, by default).  `mono-plane` runs the JAX mono tracker on the
+bare KITTI plane at phase 11a's 14 frames (`chip_smoke.JAX_MONO_PLANE`):
+
+    JAX_PLATFORMS=cpu python tests/tracking_driver.py circuit DIR [--train [--seed S]]
+    JAX_PLATFORMS=cpu python tests/tracking_driver.py mono-plane
+
 With `pipelined DIR` (the "pipelined" stage) it writes `chip_smoke.py`
 phase 12b's RGB-D layout into DIR (12 KITTI-size frames of the tilted
 plane as rgb/ + 16-bit depth/ PNGs, a yaml of phase 8's tracking
@@ -75,6 +91,15 @@ from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw  # noqa: E402
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                        "ellipsoid_decoder_64.npz")
+# the vocabulary both command lines close the KITTI-size circuit with: the one the JAX
+# command line bootstraps over `write_kitti_circuit`'s directory (`circuit DIR --train`:
+# 25 frames, branching 10, depth 4).  The port's ORB rounds its orientation in f64, so
+# ~0.3% of its descriptors differ from JAX's, and k-medians over them trains another
+# vocabulary, with which either package closes the circuit differently
+CIRCUIT_VOCAB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                             "circuit_vocab_10k.npz")
+# the frames `circuit DIR --train` bootstraps that vocabulary from
+CIRCUIT_VOCAB_FRAMES = 25
 
 
 def frames(world, texture, sensor, n, u8=False):
@@ -327,6 +352,50 @@ def main():
           + f" ({time.perf_counter() - t0:.0f} s)", flush=True)
 
 
+def mono_outcome(world, trajectory, n):
+    """A mono run's outcome as phase 11a reads it: {"init_frame" (the
+    first tracked frame, the trajectory starts there; -1 if none),
+    "ok_share" (of n frames), "ate_m" (camera centers after a Sim(3)
+    alignment; None without 3 tracked frames)}."""
+    import torch
+
+    from dsp_slam_rgbd_tpu_torch.solvers import sim3
+
+    ok = np.array([bool(o) for _, _, o in trajectory], bool)
+    if not ok.any():
+        return {"init_frame": -1, "ok_share": 0.0, "ate_m": None}
+    T = np.stack([np.asarray(p.cpu() if hasattr(p, "cpu") else p, np.float64)
+                  for (_, p, o) in trajectory if o])
+    cen = np.linalg.inv(T)[:, :3, 3]
+    gt = np.asarray([[pw.gt_x(world, int(round(t / 0.1))), 0.0, 0.0]
+                     for t, _, o in trajectory if o])
+    ate = float(sim3.align_trajectories(torch.tensor(cen, dtype=torch.float32),
+                                        torch.tensor(gt, dtype=torch.float32))[1]) \
+        if len(cen) >= 3 else None
+    return {"init_frame": int(round(trajectory[int(np.argmax(ok))][0] / 0.1)),
+            "ok_share": float(ok.sum() / n), "ate_m": ate}
+
+
+def mono_plane_run(n=14):
+    """The JAX package's mono tracker with the keyframe stage ("mono") on
+    the bare KITTI wall (`plane_world.KITTI`, no floor) for phase 11a's 14
+    frames at phase 8's configuration and `OrbConfig()` -> `mono_outcome`
+    and the keyframe count."""
+    from dsp_slam_rgbd_tpu import config
+    from dsp_slam_rgbd_tpu.frontend import orb
+    from dsp_slam_rgbd_tpu.mapping import local_mapping, map_state
+    from dsp_slam_rgbd_tpu.ops import camera
+    from dsp_slam_rgbd_tpu.system import mapping_stage
+    from dsp_slam_rgbd_tpu.tracking import tracker
+
+    world = pw.KITTI
+    cfg = kitti_configs(config, orb, camera, "mono")
+    tr, n_kf, _ = drive(map_state, local_mapping, tracker, cfg,
+                        frames(world, pw.make_texture(world), "mono", n, u8=True), code_len=64,
+                        stage="mono", objects=loop_inputs(mapping_stage, False))
+    return dict(mono_outcome(world, tr.trajectory, n), keyframes=n_kf)
+
+
 def cli_run(root):
     """The JAX command line over phase 12a's directory (see the module
     docstring) -> {"ate_m", "max_err_m", "static_center_err_m", "summary"}."""
@@ -370,6 +439,86 @@ def cli_run(root):
     return {"ate_m": ate, "max_err_m": float(np.abs(rows - gt[:len(rows)]).max()),
             "rows": len(rows), "static_center_err_m": centers, "map_objects": len(ids),
             "summary": summary}
+
+
+def circuit_metrics(paths, out, fps=10.0):
+    """The numbers phase 16 holds the port's run to, read from a command
+    line's output directory over `write_kitti_circuit`'s files: the ATE
+    after a rigid alignment and the largest translation error of
+    CameraTrajectory_TUM.txt's rows (frame = timestamp · fps), the lap gap
+    and the largest lap-2 error (`loop_world.center_metrics`), and each
+    static truth's nearest map object and the map objects within
+    `fuse_duplicate_objects`' 1.5 m of it."""
+    import json
+
+    from dsp_slam_rgbd_tpu_torch.system import io as io_mod
+    from dsp_slam_rgbd_tpu_torch.tools import loop_world as lw
+
+    rows = np.loadtxt(os.path.join(out, "CameraTrajectory_TUM.txt"), ndmin=2)
+    fi = np.round(rows[:, 0] * fps).astype(int)
+    cen = rows[:, 1:4]
+    xys = lw.KITTI.path()
+    ate, gap, lap2 = lw.center_metrics(xys, fi, cen, lw.KITTI.n_lap)
+    gt = np.asarray([[xys[f][0], xys[f][1], 0.0] for f in fi])
+    ids, poses, _ = io_mod.load_map_objects(os.path.join(out, "MapObjects.txt"))
+    d = np.stack([np.linalg.norm(poses[:, :3, 3] - t.center, axis=1) if len(ids)
+                  else np.full(1, np.inf) for t in lw.kitti_objects()])
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    return {"rows": len(rows), "frames": int(len(xys)), "ate_m": ate,
+            "max_err_m": float(np.abs(cen - gt).max()), "lap_gap_m": gap, "lap2_max_m": lap2,
+            "loop_closures": summary["loop_closures"], "keyframes": summary["n_kf"],
+            "kf_slots_exhausted": summary["kf_slots_exhausted"], "map_objects": len(ids),
+            "truth_nearest_m": d.min(axis=1).tolist(),
+            "truth_objects_within_1_5m": (d < 1.5).sum(axis=1).tolist(), "summary": summary}
+
+
+def circuit_run(root, train=False, seed=0):
+    """The JAX command line over `write_kitti_circuit`'s directory with
+    phase 16's arguments and the port's feature slots -> `circuit_metrics`.
+    The run loads CIRCUIT_VOCAB, as phase 16 does; with `train` it
+    bootstraps the vocabulary anew from CIRCUIT_VOCAB_FRAMES frames with
+    k-medians seeded by `seed` (root/vocab.npz; seed 0 made CIRCUIT_VOCAB)."""
+    import functools
+    import shutil
+    from unittest import mock
+
+    from dsp_slam_rgbd_tpu import config
+    from dsp_slam_rgbd_tpu.loop import vocabulary
+    from dsp_slam_rgbd_tpu_torch.tools import run_slam as port_cli
+    from dsp_slam_rgbd_tpu_torch.tools import sequence_dirs as sd
+    from tools import run_slam as jax_cli
+
+    paths = sd.write_kitti_circuit(root)
+    out = os.path.join(root, "out_jax")
+    read = config.from_reference_yaml_json
+
+    def sized(*a, **k):
+        cfg = read(*a, **k)
+        return config.replace(cfg, map=config.replace(cfg.map,
+                                                      max_feat=port_cli.feature_slots(cfg)))
+
+    vocab = os.path.join(root, "vocab.npz")
+    if os.path.exists(vocab):
+        os.remove(vocab)
+    if not train:
+        shutil.copy(CIRCUIT_VOCAB, vocab)
+    argv = ["run_slam.py"] + circuit_args(paths, out, vocab, train)
+    with mock.patch.object(config, "from_reference_yaml_json", sized), \
+            mock.patch.object(vocabulary, "train",
+                              functools.partial(vocabulary.train, seed=seed)), \
+            mock.patch.object(sys, "argv", argv):
+        jax_cli.main()
+    return circuit_metrics(paths, out)
+
+
+def circuit_args(paths, out, vocab, train=False):
+    """Phase 16's command line arguments (either package's `run_slam`);
+    with `train`, those that bootstrap the vocabulary into `vocab`."""
+    boot = ["--bootstrap-vocab", str(CIRCUIT_VOCAB_FRAMES)] if train else []
+    return [paths["seq"], out, "--yaml", paths["yaml"], "--labels", paths["labels"],
+            "--deepsdf", FIXTURE, "--vocab", vocab, *boot, "--vocab-depth", "4",
+            "--gt", paths["gt"]]
 
 
 def pipelined_run(root, n=12):
@@ -420,6 +569,19 @@ if __name__ == "__main__":
                   f"{mode}: keyframes {r['keyframes']}, frames {r['frames']}, centers "
                   f"{[[round(float(v), 6) for v in c] for c in r['centers']]}", flush=True)
         print(f"({time.perf_counter() - t0:.0f} s)")
+    elif sys.argv[1:2] == ["mono-plane"]:
+        t0 = time.perf_counter()
+        r = mono_plane_run()
+        print(f"JAX package on the CPU, mono on the bare KITTI plane (plane_world.KITTI, 14 "
+              f"frames, OrbConfig(), phase 8's configuration, the mono keyframe stage): {r} "
+              f"({time.perf_counter() - t0:.0f} s)", flush=True)
+    elif sys.argv[1:2] == ["circuit"]:
+        t0 = time.perf_counter()
+        seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
+        r = circuit_run(sys.argv[2], train="--train" in sys.argv[3:], seed=seed)
+        print(f"JAX package's command line on the CPU over phase 16's KITTI-size circuit: "
+              + ", ".join(f"{k} {v!r}" for k, v in r.items() if k != "summary")
+              + f"; summary {r['summary']} ({time.perf_counter() - t0:.0f} s)", flush=True)
     elif sys.argv[1:2] == ["cli"]:
         t0 = time.perf_counter()
         r = cli_run(sys.argv[2])
