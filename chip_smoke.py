@@ -16,8 +16,10 @@ initialization and loop closing (phase 11), the system loop and its
 command line (phase 12), the scale-out tier and active mapping
 (phase 13), the benches and aux tools (phase 14), whether every
 decoder kernel repeats bit for bit inside the loop (phase 15), and a loop
-closing at KITTI size with objects through the command line (phase 16).  Exits
-non-zero, with no result line, if there is no card or any phase fails.
+closing at KITTI size with objects through the command line (phase 16), and
+the fixed-order scatter-add against the CPU's `index_add_` at the scatters
+those phases made (phase 17).  Exits non-zero, with no result line, if there
+is no card or any phase fails.
 Prints, before the last line, the card's name and power limit and one
 JSON line of kernel numbers; the last line is {"ok": true, "device":
 {...}}.  With --report, every measured number also goes to that JSON
@@ -210,8 +212,14 @@ frames and jobs; `system_overrides` sets `async_kf_frames` or `pipelined`):
     start while the worker is inside a job, from its second asynchronous
     job on (the first runs on a thread just started), until one shows the
     worker's kernels: a frame whose trace holds none is printed as a miss,
-    and the phase fails if every such frame misses.  Then the same run at `async_kf_frames=0` (every keyframe stage
-    inline), held to the same checks, and its fps beside the first;
+    and the phase fails if every such frame misses.  The segment-sum
+    kernel must have launched in that run.  Then the same command line
+    again at `async_kf_frames` 3, untraced, loading the vocabulary the
+    first run saved: its CameraTrajectory.txt and MapObjects.txt must be
+    the first run's byte for byte.  Then the same run at
+    `async_kf_frames=0` (every keyframe stage inline), held to the same
+    checks, and its fps beside the first.  Each run starts from empty BA
+    capacity buckets, as a new process does;
   * 12b: phase 8c's 12 RGB-D frames as rgb/ + 16-bit depth/ PNGs, run
     with the synchronous and with the pipelined tracker (the stats read
     through a pinned copy and its event, frames finalized one call late),
@@ -225,8 +233,7 @@ frames and jobs; `system_overrides` sets `async_kf_frames` or `pipelined`):
     `tests/tracking_driver.py pipelined`): the same keyframe count (4
     synchronous, 6 pipelined) and every frame's camera center within
     RGBD_FRAME_BAND.  The pipelined run goes twice, and its two runs'
-    camera centers must lie within that band of each other too (the
-    spread of the card's own runs, printed);
+    camera centers must be equal at every frame;
   * 12c: tests/test_long_run.py's circuit (`tools/loop_world.py`, 117
     224x160 stereo frames, its vocabulary) through `SLAMSystem(vocab=...)`:
     >= 1 loop closure whose point remap is adopted (`_adopt_merge`), > 90%
@@ -259,8 +266,7 @@ not measured:
     mapping worker's thread and stream.  Each run's CameraTrajectory.txt and
     MapObjects.txt within 1e-5 of the run without --distributed, all three
     under `distributed.keep_replicas_identical` (deterministic algorithms,
-    as `initialize` turns on for more than one rank: `index_add_` in BA
-    otherwise sums in another order each run); both f32 kernels launched
+    as `initialize` turns on for more than one rank); both f32 kernels launched
     in each run and inside the mesh run's `reconstruct_sharded` calls;
     the group joined on NCCL and left after;
   * 13c: `nbv.generate` on phase 10's final map from its last frame with
@@ -316,7 +322,8 @@ results are not equal bit for bit:
     stream of their own, beside a second thread launching the f32 pair,
     ORB extraction and memory-bound kernels (whose blocks share the SMs);
   * loop: the command line over the first 8 frames of 12a's directory
-    (the f32 pair), twice, under the deterministic algorithms.
+    (the f32 pair), twice, under the deterministic algorithms (turned off
+    again after, so that phase 16 runs as a user's process does).
   It prints calls, faults, tilings and row counts per kernel, fails unless
   the loop runs reached both pairs and the stress run all four kernels,
   and fails unless the f32 Jacobian calls would have caught the fault of
@@ -343,11 +350,28 @@ writes), it checks a row for every frame, > 90% OK, no keyframe dropped,
 largest lap-2 error within 1.5x JAX_CIRCUIT's, every static truth within
 0.3 m of a map object, no truth with two map objects within 1.5 m, no
 more map objects than JAX's, and both f32 kernels launched.  It prints
-fps, track ms p50/p90/p99, `correct_loop`'s ms in the worker and its
-launches and host syncs (its first call again on the same inputs, as 11c
-counts them), the frame ms at the adoption and the ms blocked in
-`_adopt` and `_prewait_mapping`; its f32 launches join
-`launches_by_path`.
+fps, track ms p50/p90/p99, `correct_loop`'s ms in the worker (untraced),
+its first call twice again on the same inputs on this thread (launches
+from a trace of the card's kernels, host syncs as 11c counts them), the
+frame ms at the adoption and the ms blocked in `_adopt` and
+`_prewait_mapping`; its f32 launches join `launches_by_path`.  Each call
+again must give the worker's map bit for bit, and the two as many
+launches.
+
+Phase 9b runs each local BA and the PCG a second time and fails unless
+the two results are equal bit for bit; it prints the scatters' device
+time inside the PCG.  Phase 17 takes the first `ops/scatter.py::index_add`
+call from each line of the port on 9b's local BA (keyframe 500) and PCG,
+in 12a's first run (the map normals) and in phase 16 (the pose graph),
+plus two heavy-duplicate cases (2^20 rows onto 1 and onto 8 targets),
+and holds the segment-sum kernel (`csrc/segment_sum.cu`) to `index_add_`
+on the CPU bit for bit on each; it prints the kernel's ms with its plan
+reused and with the plan built in the call, `index_add_`'s (atomics) on
+the card, the plain version's (segments up to 512 rows), the bound (the
+bytes it must move over the card's memory rate) and the kernel's
+launches on each path (9b, 12a's first run, 16), each of which must be
+at least one.  It replaces no TPU kernel, so it has its own line
+(`phase 17 {"segment_sum": ...}`), not a place in the kernels line.
 """
 import argparse
 import contextlib
@@ -357,7 +381,9 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -797,6 +823,104 @@ def traced(fn, top=None):
     return len(kern), busy, sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
 
 
+# the fixed-order scatter-add on the main path: each phase's first call from each
+# line of the port it captures ("phase file:line" -> (out before the add, plan,
+# src), on the card), and the kernel's launches on each path
+SCATTER_CASES, SCATTER_LAUNCHES = {}, {}
+
+
+@contextlib.contextmanager
+def capturing_scatters(label, files):
+    """While the block runs (on any thread), the first `ops/scatter.py::index_add`
+    call from each line of the port's `files` (basenames) is copied into
+    SCATTER_CASES under "label file:line"."""
+    from dsp_slam_rgbd_tpu_torch.ops import scatter
+
+    real, lock = scatter.index_add, threading.Lock()
+
+    def index_add(out, p, src):
+        f = sys._getframe(1)
+        if f.f_code.co_filename == scatter.__file__:   # through scatter_add
+            f = f.f_back
+        site = f"{label} {os.path.basename(f.f_code.co_filename)}:{f.f_lineno}"
+        if os.path.basename(f.f_code.co_filename) in files:
+            with lock:
+                if site not in SCATTER_CASES:
+                    SCATTER_CASES[site] = (out.clone(), p, src.clone())
+        return real(out, p, src)
+
+    with mock.patch.object(scatter, "index_add", index_add):
+        yield
+
+
+@contextlib.contextmanager
+def counting_scatters(path):
+    """The segment-sum kernel's launches while the block runs, into
+    SCATTER_LAUNCHES[path] (the count reset just before, read just after)."""
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import segment_sum
+
+    segment_sum.reset_launch_counts()
+    try:
+        yield
+    finally:
+        SCATTER_LAUNCHES[path] = segment_sum.LAUNCHES["segment_sum"]
+
+
+def bits_equal(a, b) -> bool:
+    """Whether two tensors (or NamedTuples of them) hold the same bits."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(bits_equal(x, y) for x, y in zip(a, b))
+    if not isinstance(a, torch.Tensor):
+        return a == b
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(ints), b.contiguous().view(ints)
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def stream_launches(fn, dev):
+    """(fn's result, the kernels this thread launched in it, the kernels of
+    those launches the trace holds, their busy ms): a trace of the card's
+    activity only, after a throwaway one (the tracer drops a new trace's
+    first kernels); a launch is a kernel launch of the CUDA runtime or
+    driver made by this host thread, its kernel the one with its
+    correlation id.  Another thread's launches do not count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    stream = torch.cuda.current_stream()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device=dev)
+        stream.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        out = fn()
+        stream.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        p.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    # the tracer names a host thread by its pthread id's low 32 bits, as a
+    # signed int whose sign it may drop
+    low = threading.get_ident() & 0xFFFFFFFF
+    signed = low - (1 << 32) if low >= 1 << 31 else low
+    tid = {low, signed, abs(signed), threading.get_native_id()}
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e.get("name", "") and e.get("tid") in tid]
+    corr = {e["args"].get("correlation") for e in launches}
+    kern = [e for e in events if e.get("cat") == "kernel"
+            and e["args"].get("correlation") in corr]
+    # a launch counts from its host-side event: the tracer drops some of the
+    # kernels themselves (9 and 2,212 of `correct_loop`'s 67,717 in two traces
+    # on an H100), so the busy ms is that of the kernels it kept
+    check(launches and kern,
+          f"this thread's launches (tid {tid}) found in the trace with their kernels: "
+          f"{len(launches)} launches, {len(kern)} kernels; launch events' tids "
+          f"{sorted({e.get('tid') for e in events if e.get('cat') == 'cuda_runtime'})[:8]}")
+    return out, len(launches), len(kern), sum(float(e.get("dur", 0.0)) for e in kern) / 1e3
+
+
 def keyframe_stage_phase(tr, frame, kid, smi):
     """Phase 9a: one more keyframe stage on the stereo tracker's map after
     phase 8 (frame 28, keyframe id `kid`, into the first free slot): host
@@ -923,39 +1047,53 @@ def ba_scale_phase(dev, smi):
         prob, _ = lm.build_local_ba_problem(state, center, max_kfs=10)
         B = prob.kf_pose.shape[0] + prob.obj_pose.shape[0]
         ms_ = wall_ms(lambda: ba.local_ba(cam, prob), 2)
-        res = ba.local_ba(cam, prob)
+        with capturing_scatters("9b local", ("ba.py",)) if center == 500 \
+                else contextlib.nullcontext(), counting_scatters(f"9b local BA at {center}"):
+            res = ba.local_ba(cam, prob)
         launches, busy = traced(lambda: ba.local_ba(cam, prob))
+        # two runs of one problem give the same bits
+        repeats = bits_equal(ba.local_ba(cam, prob), res)
         before = mean_reproj(ba, cam, prob)
         after = mean_reproj(ba, cam, prob._replace(kf_pose=res.kf_pose, pts=res.pts))
         case = {"center": center, "B": B, "points": prob.pts.shape[0],
                 "edges": int(prob.obs_mask.sum()), "ms": ms_, "launches": launches,
-                "busy_ms": busy, "reproj_px_before": before, "reproj_px_after": after}
+                "busy_ms": busy, "reproj_px_before": before, "reproj_px_after": after,
+                "repeats": repeats}
         local.append(case)
         check(B <= 64 and np.isfinite(after) and after < 0.7 * before, f"9b local BA {case}")
+        check(repeats, f"9b local BA at {center}: a second run equals the first bit for bit")
         print(f"phase 9b local BA at keyframe {center} of the corridor (1,000 KFs, 200,000 "
               f"points): B={B}, {case['points']} point slots, {case['edges']} edges; "
               f"reprojection {before:.3f} -> {after:.3f} px; {ms_:.1f} ms, {launches} launches, "
-              f"busy {busy:.2f} ms on {smi}", flush=True)
+              f"busy {busy:.2f} ms; a second run bit for bit equal: {repeats} on {smi}",
+              flush=True)
     gprob, gidx = lm.build_local_ba_problem(state, 0, 0, global_window=True)
     B = gprob.kf_pose.shape[0] + gprob.obj_pose.shape[0]
     n_live = int(ms._obs_ok(state).sum())
     n_in = int(gprob.obs_mask.sum())
     ms_ = wall_ms(lambda: ba.global_ba_pcg(cam, gprob, n_iters=6), 1)
-    res = ba.global_ba_pcg(cam, gprob, n_iters=6)
-    launches, busy, top = traced(lambda: ba.global_ba_pcg(cam, gprob, n_iters=6), top=4)
+    with capturing_scatters("9b PCG", ("ba.py",)), counting_scatters("9b global BA (PCG)"):
+        res = ba.global_ba_pcg(cam, gprob, n_iters=6)
+    launches, busy, top = traced(lambda: ba.global_ba_pcg(cam, gprob, n_iters=6), top=40)
+    repeats = bits_equal(ba.global_ba_pcg(cam, gprob, n_iters=6), res)
+    # the scatters' device time: the segment-sum kernel (and any index_add_ left)
+    scatter_ms = sum(v for k, v in top if "segment_sum" in k or "indexFunc" in k)
     before = mean_reproj(ba, cam, gprob)
     after = mean_reproj(ba, cam, gprob._replace(kf_pose=res.kf_pose, pts=res.pts))
     state2 = lm.apply_ba_result(state, gidx, res)
     glob = {"B": B, "edges": n_in, "live_observations": n_live, "points": gprob.pts.shape[0],
             "ms": ms_, "launches": launches, "busy_ms": busy, "top_kernels": top,
-            "reproj_px_before": before, "reproj_px_after": after}
+            "scatter_ms": scatter_ms, "reproj_px_before": before, "reproj_px_after": after,
+            "repeats": repeats}
     check(B >= 1000 and n_in == n_live > 150_000 and np.isfinite(after) and after < 0.5 * before
           and bool(torch.isfinite(state2.kf_pose).all()), f"9b global BA {glob}")
+    check(repeats, "9b global BA (PCG): a second run equals the first bit for bit")
     rep.update(local_ba=local, global_ba_pcg=glob)
     print(f"phase 9b global BA (PCG, 6 LM iterations of 48 CG steps): B={B}, {n_in} edges "
           f"(every live observation), {glob['points']} point slots; reprojection {before:.3f} -> "
-          f"{after:.3f} px; {ms_:.1f} ms, {launches} launches, busy {busy:.2f} ms; top: "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in top) + f" on {smi}", flush=True)
+          f"{after:.3f} px; {ms_:.1f} ms, {launches} launches, busy {busy:.2f} ms, of it the "
+          f"scatters {scatter_ms:.2f} ms; a second run bit for bit equal: {repeats}; top: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in top[:4]) + f" on {smi}", flush=True)
 
     # ---- 9c. the card against the CPU: one LM step of each local problem,
     # and the dense-vs-PCG agreement on the 24-KF corridor
@@ -1873,11 +2011,12 @@ JAX_RGBD = {
         [3.155051, 0.024952, -0.007925], [3.493958, 0.070364, -0.008457],
         [3.793778, 0.052862, 0.005552]]}}
 # 12b's frame-by-frame band on the camera centers against JAX_RGBD (m). The CPU parity
-# tests hold the port's frames to JAX's within 1e-2 m (tests/test_torch_tracking.py), but
-# those runs repeat bit for bit. On the card `index_add_` sums in another order each run,
-# which flips a converged LM's accept tests: two pipelined runs of the same code differ
-# from each other by up to ~1e-2 m at a frame from the fifth on (12b runs it twice and
-# prints that spread). The band is twice that spread.
+# tests hold the port's frames to JAX's within 1e-2 m (tests/test_torch_tracking.py). The
+# card sums its products and reductions in other orders than XLA on the CPU, and a
+# converged LM's accept tests turn on the last bits: before the port's scatter-adds took
+# a fixed order, two pipelined runs on the card differed from each other by up to
+# 0.009718 m at a frame from the fifth on (PERF.md), and this band, twice that, stays
+# the bar against JAX. Two runs on the card now give the same bits (12b checks it).
 RGBD_FRAME_BAND = 2e-2
 
 
@@ -2015,6 +2154,7 @@ def cli_objects_run(dev, paths, out, vocab, async_kf_frames, trace_path=None):
 
     from torch.profiler import ProfilerActivity, profile
 
+    from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
     from dsp_slam_rgbd_tpu_torch.system import mapping_stage, slam
     from dsp_slam_rgbd_tpu_torch.tools import run_slam
 
@@ -2073,6 +2213,9 @@ def cli_objects_run(dev, paths, out, vocab, async_kf_frames, trace_path=None):
     argv = [paths["seq"], out, "--yaml", paths["yaml"], "--labels", paths["labels"],
             "--deepsdf", FIXTURE, "--vocab", vocab, "--bootstrap-vocab", "24",
             "--vocab-depth", "4", "--gt", paths["gt"]]
+    # every run starts as a new process does, with no BA capacity buckets (the
+    # module keeps the last ones per map shape, and other buckets pad the sums)
+    lm._bucket_memo.clear()
     with system_overrides(async_kf_frames=async_kf_frames), \
             mock.patch.object(slam.SLAMSystem, "track_frame", timed_track_frame), \
             mock.patch.object(mapping_stage.MappingStage, "process", timed_process):
@@ -2129,12 +2272,16 @@ def cli_objects_phase(dev, smi, tmp):
         torch.cuda.synchronize()
     mlp_sdf.reset_launch_counts()
     t0 = time.perf_counter()
-    res, rec = cli_objects_run(dev, paths, os.path.join(tmp, "out12a"), vocab, 3,
-                               trace_path=os.path.join(tmp, "frame_trace.json"))
+    with counting_scatters("12a command line"), \
+            capturing_scatters("12a", ("local_mapping.py",)):
+        res, rec = cli_objects_run(dev, paths, os.path.join(tmp, "out12a"), vocab, 3,
+                                   trace_path=os.path.join(tmp, "frame_trace.json"))
     run_s = time.perf_counter() - t0
     launches = dict(mlp_sdf.LAUNCHES)
     check(launches["mlp_sdf_value_f32"] > 0 and launches["mlp_sdf_jacobian_f32"] > 0,
           f"12a both f32 kernels launched from the command line's run: {launches}")
+    check(SCATTER_LAUNCHES["12a command line"] > 0,
+          f"12a the segment-sum kernel launched from the command line's run: {SCATTER_LAUNCHES}")
     got = cli_objects_check(paths, os.path.join(tmp, "out12a"), res)
     summ, traced, misses = res["summary"], rec["traced"], rec["misses"]
     for m in misses:
@@ -2210,6 +2357,22 @@ def cli_objects_phase(dev, smi, tmp):
               for k, v in traced["streams"].items())
           + f"; the tracker's and the worker's kernels ran at once for "
           f"{traced['overlap_ms']:.2f} ms on {smi}", flush=True)
+    # the same command line again (loading the vocabulary the first run
+    # bootstrapped and saved): two runs of one build write the same files
+    t0 = time.perf_counter()
+    res2, _ = cli_objects_run(dev, paths, os.path.join(tmp, "out12a_again"), vocab, 3)
+    same = {}
+    for f in ("CameraTrajectory.txt", "MapObjects.txt"):
+        with open(os.path.join(tmp, "out12a", f), "rb") as a, \
+                open(os.path.join(tmp, "out12a_again", f), "rb") as b:
+            same[f] = a.read() == b.read()
+    rep["again"] = {"files_identical": same, "summary": res2["summary"],
+                    "run_s": time.perf_counter() - t0}
+    print(f"phase 12a again at async_kf_frames 3 (the vocabulary loaded): {res2['summary']['fps']} "
+          f"fps, {res2['summary']['n_kf']} keyframes; byte-identical to the first run: {same}; "
+          f"run {rep['again']['run_s']:.1f} s on {smi}", flush=True)
+    check(all(same.values()), f"12a a second run at async_kf_frames 3 writes the first run's "
+          f"CameraTrajectory.txt and MapObjects.txt byte for byte: {same}")
     # the same run with every keyframe stage inline in its frame
     t0 = time.perf_counter()
     res0, _ = cli_objects_run(dev, paths, os.path.join(tmp, "out12a_sync"), vocab, 0)
@@ -2247,8 +2410,10 @@ def _layout_write(tmp, name, world, sensor, n):
 def _layout_run(tmp, root, yaml, out, sensor, **overrides):
     """The command line over a layout written by `_layout_write` -> (result,
     TUM camera centers, frame index of each row)."""
+    from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
     from dsp_slam_rgbd_tpu_torch.tools import run_slam
 
+    lm._bucket_memo.clear()   # as a new process starts (see cli_objects_run)
     with system_overrides(**overrides):
         res = run_slam.main([root, os.path.join(tmp, out), "--sensor", sensor, "--yaml", yaml])
     rows = np.loadtxt(os.path.join(tmp, out, "CameraTrajectory_TUM.txt"), ndmin=2)
@@ -2317,8 +2482,8 @@ def cli_layouts_phase(dev, smi, tmp):
     a, b = runs["pipelined"], runs["pipelined_again"]
     spread = np.linalg.norm(a - b, axis=1) if a.shape == b.shape else np.full(len(a), np.inf)
     rep["rgbd_pipelined_run_to_run_m"] = spread.tolist()
-    check(spread.max() < RGBD_FRAME_BAND,
-          f"12b two pipelined runs within the band of each other: {spread.tolist()}")
+    check(spread.max() == 0.0,
+          f"12b two pipelined runs give the same camera centers: {spread.tolist()}")
     print(f"phase 12b RGB-D pipelined, run to run on the card: camera centers within "
           f"{spread.max():.6f} m of each other (frame by frame "
           f"{', '.join(f'{x:.6f}' for x in spread)}) on {smi}", flush=True)
@@ -2449,8 +2614,9 @@ def system_phase(dev, smi, keep):
 # tolerances: the sharded reconstruction against the unsharded one 1e-5 (a one-rank group
 # sums nothing, so only launch sizes differ); one LM step of BA 1e-4 (9c's, and
 # tests/test_parallel.py's); whole sharded LM runs at tests/test_distributed_2proc.py's
-# (poses 1e-3, points 1e-2: a converged LM's accept tests sit at f32 rounding and
-# `index_add_`'s order changes from run to run on the card); sharded PCG at
+# (poses 1e-3, points 1e-2: a converged LM's accept tests sit at f32 rounding, and the
+# sharded problem is padded and summed across ranks, so its products take other
+# orders than the unsharded run's; each run repeats bit for bit); sharded PCG at
 # tests/test_parallel.py's (poses 2e-2, points 5e-2)
 RECON_SHARD_TOL = 1e-5
 NBV_RTOL = 1e-4
@@ -3122,7 +3288,7 @@ def repeat_phase(smi):
     t_phase = time.perf_counter()
     runs = {"loop-fast": kr.loop_fast(1),
             "stress": kr.stress(REPEAT_STRESS_CALLS, REPEAT_STRESS_S, kr.NOISE),
-            # last: it turns on the deterministic algorithms for the process
+            # under the deterministic algorithms, which it turns off again after
             "loop": kr.loop(REPEAT_LOOP_RUNS, deterministic=True)}
     for mode, s in runs.items():
         for name, k in s["kernels"].items():
@@ -3203,13 +3369,13 @@ def circuit_phase(dev, smi):
     adopt, process, prewait_mapping = (slam.SLAMSystem._adopt, mstage.MappingStage.process,
                                        slam.SLAMSystem._prewait_mapping)
 
-    def timed_correct_loop(*a, **k):   # on the worker's thread and stream
+    def timed_correct_loop(*a, **k):   # on the worker's thread and stream, untraced
         torch.cuda.current_stream().synchronize()
         t = time.perf_counter()
         r = correct_loop(*a, **k)
         torch.cuda.current_stream().synchronize()
         correct_ms.append((time.perf_counter() - t) * 1e3)
-        correct_calls[:] = correct_calls or [(a, k)]   # the first call's inputs
+        correct_calls[:] = correct_calls or [(a, k, r)]   # the first call's inputs and result
         return r
 
     def watched_adopt(self, entry):
@@ -3244,7 +3410,8 @@ def circuit_phase(dev, smi):
         with mock.patch.object(mstage.loop_closing, "correct_loop", timed_correct_loop), \
                 mock.patch.object(slam.SLAMSystem, "_adopt", watched_adopt), \
                 mock.patch.object(slam.SLAMSystem, "_prewait_mapping", watched_prewait), \
-                mock.patch.object(mstage.MappingStage, "process", checked_process):
+                mock.patch.object(mstage.MappingStage, "process", checked_process), \
+                counting_scatters("16 loop circuit"), capturing_scatters("16", ("pose_graph.py",)):
             res = run_slam.main(td.circuit_args(paths, out, vocab))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
@@ -3255,23 +3422,21 @@ def circuit_phase(dev, smi):
     ms_ = np.asarray(res["track_ms"])
     at_adoption = [float(ms_[a["frame"]]) for a in adopted if a["frame"] < len(ms_)]
     # correct_loop's launches and host syncs: its first call again on its own
-    # inputs, on this thread (the worker's call shared the card with the
-    # tracker's thread); syncs as 11c counts them, launches from a trace of
-    # the card's kernels only, as 12a traces (the host's ops of ~70,000
-    # launches would take the tracer a minute)
+    # inputs, twice, on this thread (the worker's call, timed untraced, shared
+    # the card with the tracker's thread); syncs as 11c counts them, launches
+    # from a trace of the card's kernels launched by this thread only (the
+    # host's ops of ~70,000 launches would take the tracer a minute).  Each
+    # replay must give the worker's bits, and the two as many launches.
     t0 = time.perf_counter()
-    cl_launches, cl_busy, cl_syncs = 0, 0.0, 0
+    cl_launches, cl_kernels, cl_busy, cl_syncs, replay_equal = [], [], 0.0, 0, False
     if correct_calls:
-        from torch.profiler import ProfilerActivity, profile
-
-        a, k = correct_calls[0]
-        with tempfile.TemporaryDirectory() as tmp:
-            with profile(activities=[ProfilerActivity.CUDA]) as p:
-                correct_loop(*a, **k)
-                torch.cuda.synchronize()
-            p.export_chrome_trace(os.path.join(tmp, "correct_loop.json"))
-            kern = _kernels(os.path.join(tmp, "correct_loop.json"))
-        cl_launches, cl_busy = len(kern), sum(float(e.get("dur", 0.0)) for e in kern) / 1e3
+        a, k, worker_out = correct_calls[0]
+        replay_equal = True
+        for _ in range(2):
+            replay, n, n_kern, cl_busy = stream_launches(lambda: correct_loop(*a, **k), dev)
+            replay_equal = replay_equal and bits_equal(replay, worker_out)
+            cl_launches.append(n)
+            cl_kernels.append(n_kern)
         _, cl_syncs = with_syncs(lambda: correct_loop(*a, **k))
     replay_s = time.perf_counter() - t0
     rep = {"card": smi, "frames": got["frames"], "rows": got["rows"], "ok_share": float(ok.mean()),
@@ -3281,6 +3446,8 @@ def circuit_phase(dev, smi):
                                         "truth_objects_within_1_5m")},
            "summary": summ, "jax_circuit_cpu": JAX_CIRCUIT, "remaps_adopted": adopted,
            "correct_loop_ms": correct_ms, "correct_loop_launches": cl_launches,
+           "correct_loop_kernels_traced": cl_kernels,
+           "correct_loop_replay_equal": replay_equal,
            "correct_loop_busy_ms": cl_busy, "correct_loop_host_syncs": cl_syncs,
            "frame_ms_at_adoption": at_adoption,
            # the job adopted at frame A is waited for in frames A-2 and A-1
@@ -3302,8 +3469,11 @@ def circuit_phase(dev, smi):
           f"{summ['track_ms_p50']}/{summ['track_ms_p90']}/{summ['track_ms_p99']}; ok "
           f"{ok.mean():.3f}, {got['keyframes']} keyframes, {got['loop_closures']} closure(s), "
           f"remaps adopted at {adopted}; correct_loop in the worker "
-          f"{', '.join(f'{x:.1f}' for x in correct_ms)} ms, {cl_launches} launches (busy "
-          f"{cl_busy:.1f} ms), {cl_syncs} host syncs; frame ms at the adoption "
+          f"{', '.join(f'{x:.1f}' for x in correct_ms)} ms; twice again on this thread "
+          f"{cl_launches} launches ({cl_kernels} of their kernels in the trace, the second's "
+          f"busy {cl_busy:.1f} ms), {cl_syncs} host syncs, each result "
+          f"bit for bit the worker's: {replay_equal}; "
+          f"segment-sum launches {SCATTER_LAUNCHES['16 loop circuit']}; frame ms at the adoption "
           f"{', '.join(f'{x:.1f}' for x in at_adoption)} (median frame "
           f"{rep['frame_ms_median']:.1f}), the two frames before it "
           f"{rep['frame_ms_before_adoption']} ms, waiting in _prewait_mapping "
@@ -3336,7 +3506,87 @@ def circuit_phase(dev, smi):
           f"16 no MapState tensor written in place by a job: {unchanged}")
     check(launches["mlp_sdf_value_f32"] > 0 and launches["mlp_sdf_jacobian_f32"] > 0,
           f"16 both f32 kernels launched from the command line's run: {launches}")
+    check(replay_equal and len(cl_launches) == 2 and cl_launches[0] == cl_launches[1],
+          f"16 correct_loop twice again on the worker's inputs gives the worker's map bit for "
+          f"bit, with as many launches each time: equal {replay_equal}, launches {cl_launches}")
     return rep, {"16 loop circuit at KITTI size": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the fixed-order scatter-add against the CPU's index_add_
+# ---------------------------------------------------------------------------
+# heavy-duplicate cases beside the main path's: (name, targets, rows, trailing shape)
+HEAVY_SCATTERS = (("heavy: every row onto one target", 1, 1 << 20, ()),
+                  ("heavy: 8 targets", 8, 1 << 20, (3,)))
+PLAIN_MAX_SEGMENT = 512   # the plain version loops over a segment's rows: timed up to this
+
+
+def scatter_phase(dev, smi, mem_bw):
+    """Phase 17: the segment-sum kernel (`csrc/segment_sum.cu`, through
+    `ops/scatter.py::index_add`) on every scatter the main path captured
+    (SCATTER_CASES: 9b's local BA and PCG, 12a's map normals, phase 16's
+    pose graph) and on HEAVY_SCATTERS, each bit for bit against
+    `index_add_` on the CPU; times the kernel with its plan reused and with
+    the plan built in the call, `index_add_`'s atomics on the card, and the
+    plain version -> the report's "segment_sum" entry."""
+    from dsp_slam_rgbd_tpu_torch.ops import scatter
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import segment_sum as ss
+
+    g = np.random.default_rng(17)
+    cases = dict(SCATTER_CASES)
+    for name, n, rows, tr in HEAVY_SCATTERS:
+        shape = (rows,) + tr
+        src = g.standard_normal(shape) * 10.0 ** g.uniform(-3, 3, shape)
+        cases[name] = (torch.tensor(g.standard_normal((n,) + tr), dtype=torch.float32,
+                                    device=dev),
+                       scatter.plan(torch.tensor(g.integers(0, n, rows), device=dev), n),
+                       torch.tensor(src, dtype=torch.float32, device=dev))
+    out = []
+    for site, (out0, p, src) in cases.items():
+        got = scatter.index_add(out0.clone(), p, src)
+        # the CPU's route: index_add_ over the rows the plan keeps
+        want = scatter.index_add(out0.cpu(), p.to("cpu"), src.cpu())
+        equal = bits_equal(got, want.to(dev))
+        counts = p.offsets[1:] - p.offsets[:-1]
+        longest = int(counts.max()) if counts.numel() else 0
+        kept = int(p.offsets[-1])
+        rows = p.perm[:kept].sort().values   # the kept rows, in source order
+        idx_k, src_k = p.idx[rows], src[rows]
+        srcc, o = src.contiguous(), out0.clone()
+        es = out0.element_size()
+        nbytes = 2 * out0.numel() * es + src_k.numel() * es + 8 * (kept + p.offsets.numel())
+        row = {"site": site, "targets": out0.shape[0], "rows": src.shape[0], "rows_kept": kept,
+               "trailing": list(out0.shape[1:]), "dtype": str(out0.dtype).split(".")[-1],
+               "longest_segment": longest, "bit_equal": equal,
+               "ms": cuda_ms(lambda: ss.launch(o, p.perm, p.offsets, srcc), 20),
+               "ms_plan_in_call": cuda_ms(lambda: scatter.index_add(
+                   o, scatter.plan(p.idx, p.n, p.keep), src), 20),
+               "library_ms": cuda_ms(lambda: o.index_add_(0, idx_k, src_k), 20),
+               "plain_ms": cuda_ms(lambda: ss.segment_sum_plain(o, p.perm, p.offsets, srcc), 2)
+               if longest <= PLAIN_MAX_SEGMENT else None,
+               "bound_ms": nbytes / mem_bw * 1e3, "bound_by": "bytes"}
+        out.append(row)
+        print(f"phase 17 segment_sum {site}: {row['targets']} targets x {row['trailing']}, "
+              f"{kept} of {row['rows']} rows kept, longest segment {longest}; bit for bit "
+              f"index_add_ on the "
+              f"CPU: {equal}; kernel {row['ms']:.4f} ms (plan reused), "
+              f"{row['ms_plan_in_call']:.4f} ms (plan built in the call), index_add_ atomics "
+              f"{row['library_ms']:.4f} ms, plain "
+              + (f"{row['plain_ms']:.3f} ms" if row["plain_ms"] is not None else "not measured")
+              + f", bound {row['bound_ms']:.4f} ms (bytes) on {smi}", flush=True)
+    rep = {"name": "segment_sum", "route": "cuda",
+           "source": "dsp_slam_rgbd_tpu_torch/csrc/segment_sum.cu", "replaces": None,
+           "launches": SCATTER_LAUNCHES.get("12a command line"),
+           "launches_by_path": dict(SCATTER_LAUNCHES), "cases": out, "card": smi}
+    print("phase 17 " + json.dumps({"segment_sum": rep}), flush=True)
+    check(all(r["bit_equal"] for r in out) and len(out) >= len(HEAVY_SCATTERS) + 4,
+          f"17 the segment-sum kernel equals index_add_ on the CPU bit for bit: "
+          f"{[(r['site'], r['bit_equal']) for r in out]}")
+    check({"9b local", "9b PCG", "12a", "16"} <= {s.rsplit(" ", 1)[0] for s in SCATTER_CASES},
+          f"17 scatters captured on every path: {sorted(SCATTER_CASES)}")
+    check(all(v > 0 for v in SCATTER_LAUNCHES.values()),
+          f"17 the segment-sum kernel launched on every path: {SCATTER_LAUNCHES}")
+    return rep
 
 
 def main(argv=None):
@@ -3677,6 +3927,8 @@ def main(argv=None):
     report["repeat"] = repeat_phase(smi)
     # ---- 16. a loop closes at KITTI size with objects through the command line
     report["circuit"], paths16 = circuit_phase(dev, smi)
+    # ---- 17. the fixed-order scatter-add on the main path's scatters
+    report["segment_sum"] = scatter_phase(dev, smi, mem_bw)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "rows", "dtype")

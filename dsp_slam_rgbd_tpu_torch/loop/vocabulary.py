@@ -108,8 +108,9 @@ def bow_vector(word_ids: torch.Tensor, n_words: int, idf=None) -> torch.Tensor:
     """(N,) word ids -> L1-normalized (W,) BoW vector (tf or tf-idf)."""
     ok = word_ids >= 0
     w_safe = torch.where(ok, word_ids.long(), n_words)
-    v = torch.zeros(n_words + 1, device=word_ids.device)
-    v = v.index_add(0, w_safe, ok.float())[:-1]
+    # counted in int32 (exact in any order), then made float: small integers
+    v = torch.zeros(n_words + 1, dtype=torch.int32, device=word_ids.device)
+    v = v.index_add(0, w_safe, ok.to(torch.int32))[:-1].float()
     if idf is not None:
         v = v * idf
     return v / torch.clamp_min(torch.sum(v), 1e-9)

@@ -15,9 +15,11 @@ solvers, `src/Optimizer.cc` / `Optimizer_util.cc`):
 Observations are COO triplets with static capacity and masks.  The LM and
 CG loops are Python loops over tensors: accept/reject by `torch.where`,
 solves by `linalg.solve_ex`/`inv_ex`, non-finite steps zeroed, and no host
-read anywhere.  Normal-equation assembly scatters with `index_add_`: on
-the card its f32 summation order changes from run to run, so two runs (or
-the card and the CPU) agree to a tolerance, not bit for bit.
+read anywhere.  Normal-equation assembly scatters with
+`ops/scatter.py::index_add`, which sums in source order on every device:
+two runs give the same bits, and the card gives the CPU's.  The scatters'
+index arrays stay fixed through a problem's LM and CG iterations, so their
+plans are built once per problem (`_dense_plans`, `_pcg_plans`).
 
 Sharded edges (`parallel/sharded_ba.py`): with `group=`, the edge arrays
 of the problem are this rank's share and the state is replicated.  Every
@@ -35,6 +37,7 @@ import torch
 
 from dsp_slam_rgbd_tpu_torch.ops import camera as cam_ops
 from dsp_slam_rgbd_tpu_torch.ops import lie
+from dsp_slam_rgbd_tpu_torch.ops import scatter
 from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
 
 CHI2_MONO = 5.991
@@ -142,25 +145,59 @@ def _object_weights(prob: BAProblem, e_o):
     return chi2_o, w_o
 
 
-def _add_object_blocks(prob: BAProblem, Hcc, bc):
+class BAPlans(NamedTuple):
+    """The scatter plans of one problem's fixed index arrays (`ops/scatter.py`):
+    reprojection edges onto the B = K + O pose blocks and onto the P points,
+    object edges onto their keyframe and object blocks, and, for the dense
+    reduced system only, the flat (kf, pt) and (block, block) pairs.  They
+    sum the edges whose mask is set when the problem is built: a masked
+    edge's weight is 0 through every iteration (the gate only clears
+    masks), and the bucket's padding rows, all aimed at block 0 and point
+    0, would make one long serial segment there."""
+    kf: scatter.ScatterPlan
+    pt: scatter.ScatterPlan
+    okf: scatter.ScatterPlan
+    oobj: scatter.ScatterPlan
+    kf_pt: scatter.ScatterPlan | None = None
+    pairs: scatter.ScatterPlan | None = None
+
+
+def _object_index(prob: BAProblem):
+    """(object edges' keyframe blocks, their object blocks K+o)."""
+    return prob.oobs_kf.long(), prob.kf_pose.shape[0] + prob.oobs_obj.long()
+
+
+def _pcg_plans(prob: BAProblem) -> BAPlans:
+    B = prob.kf_pose.shape[0] + prob.obj_pose.shape[0]
+    okf, oobj = _object_index(prob)
+    m, om = prob.obs_mask, prob.oobs_mask
+    return BAPlans(scatter.plan(prob.obs_kf, B, m),
+                   scatter.plan(prob.obs_pt, prob.pts.shape[0], m),
+                   scatter.plan(okf, B, om), scatter.plan(oobj, B, om))
+
+
+def _dense_plans(prob: BAProblem) -> BAPlans:
+    P = prob.pts.shape[0]
+    B = prob.kf_pose.shape[0] + prob.obj_pose.shape[0]
+    okf, oobj = _object_index(prob)
+    return _pcg_plans(prob)._replace(
+        kf_pt=scatter.plan(prob.obs_kf.long() * P + prob.obs_pt.long(), B * P, prob.obs_mask),
+        pairs=scatter.plan(torch.cat([okf * B + oobj, oobj * B + okf]), B * B,
+                           prob.oobs_mask.repeat(2)))
+
+
+def _add_object_blocks(prob: BAProblem, plans: BAPlans, Hcc, bc):
     """Add the object edges' diagonal blocks and gradients into Hcc and bc
     (in place).  Returns (edge keyframe blocks, edge object blocks K+o,
     the coupling blocks Jkᵀ·w·Jo (M, 6, 6), the edges' χ²)."""
-    K = prob.kf_pose.shape[0]
     e_o, Jk_o, Jo_o = _object_terms(prob)
     chi2_o, w_o = _object_weights(prob, e_o)
-    okf, oobj = prob.oobs_kf.long(), K + prob.oobs_obj.long()
-    Hcc.index_add_(0, okf, torch.einsum("ndi,ndj,n->nij", Jk_o, Jk_o, w_o))
-    Hcc.index_add_(0, oobj, torch.einsum("ndi,ndj,n->nij", Jo_o, Jo_o, w_o))
-    bc.index_add_(0, okf, -torch.einsum("ndi,nd->ni", Jk_o, e_o * w_o[:, None]))
-    bc.index_add_(0, oobj, -torch.einsum("ndi,nd->ni", Jo_o, e_o * w_o[:, None]))
+    okf, oobj = _object_index(prob)
+    scatter.index_add(Hcc, plans.okf, torch.einsum("ndi,ndj,n->nij", Jk_o, Jk_o, w_o))
+    scatter.index_add(Hcc, plans.oobj, torch.einsum("ndi,ndj,n->nij", Jo_o, Jo_o, w_o))
+    scatter.index_add(bc, plans.okf, -torch.einsum("ndi,nd->ni", Jk_o, e_o * w_o[:, None]))
+    scatter.index_add(bc, plans.oobj, -torch.einsum("ndi,nd->ni", Jo_o, e_o * w_o[:, None]))
     return okf, oobj, torch.einsum("ndi,ndj,n->nij", Jk_o, Jo_o, w_o), chi2_o
-
-
-def _scatter_add(n: int, idx, src):
-    """(n, …) zeros with src's rows added at idx (atomics on the card)."""
-    out = torch.zeros((n,) + tuple(src.shape[1:]), dtype=src.dtype, device=src.device)
-    return out.index_add_(0, idx.long(), src)
 
 
 def _fixed_blocks(prob: BAProblem):
@@ -189,11 +226,13 @@ def _hpp_inverse(Hpp, pt_live):
     return torch.linalg.inv_ex(Hpp_d)[0]
 
 
-def _assemble_and_solve(cam, prob: BAProblem, damping, group=None):
+def _assemble_and_solve(cam, prob: BAProblem, damping, group=None, plans=None):
     """One GN step over (K+O) pose blocks with marginalized points.
     `damping`: the LM λ (a float or a 0-d tensor).  Returns (stepped
     problem, cost at the input state).  `group`: the ranks whose edge
-    shards are summed (one all_reduce of the assembled blocks)."""
+    shards are summed (one all_reduce of the assembled blocks).  `plans`:
+    `_dense_plans(prob)` (built here if not given)."""
+    plans = _dense_plans(prob) if plans is None else plans
     K = prob.kf_pose.shape[0]
     P = prob.pts.shape[0]
     O = prob.obj_pose.shape[0]
@@ -209,17 +248,17 @@ def _assemble_and_solve(cam, prob: BAProblem, damping, group=None):
     JcT_r = torch.einsum("ndi,nd,n->ni", Jc, res, w)
     JpT_r = torch.einsum("ndi,nd,n->ni", Jp, res, w)
 
-    Hcc = _scatter_add(B, obs_kf, JcT_Jc)
-    bc = _scatter_add(B, obs_kf, -JcT_r)
-    Hpp = _scatter_add(P, obs_pt, JpT_Jp)
-    bp = _scatter_add(P, obs_pt, -JpT_r)
+    Hcc = scatter.scatter_add(B, plans.kf, JcT_Jc)
+    bc = scatter.scatter_add(B, plans.kf, -JcT_r)
+    Hpp = scatter.scatter_add(P, plans.pt, JpT_Jp)
+    bp = scatter.scatter_add(P, plans.pt, -JpT_r)
     # each (kf, pt) pair occurs at most once: a flat accumulate on (B·P)
-    Hcp = _scatter_add(B * P, obs_kf * P + obs_pt, JcT_Jp).view(B, P, 6, 3)
+    Hcp = scatter.scatter_add(B * P, plans.kf_pt, JcT_Jp).view(B, P, 6, 3)
 
     # object edges couple pose blocks k and K+o inside the reduced system
-    okf, oobj, ko, chi2_o = _add_object_blocks(prob, Hcc, bc)
-    S = _scatter_add(B * B, torch.cat([okf * B + oobj, oobj * B + okf]),
-                     torch.cat([ko, ko.transpose(-1, -2)])).view(B, B, 6, 6)
+    _, _, ko, chi2_o = _add_object_blocks(prob, plans, Hcc, bc)
+    S = scatter.scatter_add(B * B, plans.pairs,
+                            torch.cat([ko, ko.transpose(-1, -2)])).view(B, B, 6, 6)
     live = prob.obs_mask & prob.pt_valid[obs_pt] & prob.kf_valid[obs_kf]
     cost = torch.sum(torch.where(live, chi2, 0.0)) \
         + torch.sum(torch.where(prob.oobs_mask, chi2_o, 0.0))
@@ -328,8 +367,9 @@ def local_ba(cam, prob: BAProblem, stage1_iters: int = 5,
     each stage true Levenberg-Marquardt on the dense reduced system.
     `group`: the ranks whose edge shards `prob` holds (the result's edge
     masks are then this rank's share)."""
+    plans = _dense_plans(prob)
     return _two_stage(cam, prob, stage1_iters, stage2_iters, damping,
-                      lambda p, lam: _assemble_and_solve(cam, p, lam, group), group)
+                      lambda p, lam: _assemble_and_solve(cam, p, lam, group, plans), group)
 
 
 def global_ba(cam, prob: BAProblem, n_iters: int = 20, damping: float = 1e-3) -> BAResult:
@@ -349,9 +389,10 @@ def global_ba(cam, prob: BAProblem, n_iters: int = 20, damping: float = 1e-3) ->
 # ---------------------------------------------------------------------------
 
 
-def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None):
+def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None, plans=None):
     """One GN step of the reduced (pose+object) system via PCG.  Returns
-    (stepped problem, cost at the input state).
+    (stepped problem, cost at the input state).  `plans`: `_pcg_plans(prob)`
+    (built here if not given).
 
     `group` (JAX `axis`, `mapping/ba.py:345-356`): the edge arrays of
     `prob` are this rank's share, and every edge-derived sum crosses the
@@ -362,6 +403,7 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None):
     def ps(*ts):
         return ts if group is None else dist.psum(ts, group)
 
+    plans = _pcg_plans(prob) if plans is None else plans
     K = prob.kf_pose.shape[0]
     P = prob.pts.shape[0]
     O = prob.obj_pose.shape[0]
@@ -378,12 +420,12 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None):
     gc = torch.einsum("ndi,nd,n->ni", Jc, res, w)
     gp = torch.einsum("ndi,nd,n->ni", Jp, res, w)
 
-    Hcc = _scatter_add(B, obs_kf, Ccc)
-    bc = _scatter_add(B, obs_kf, -gc)
-    Hpp = _scatter_add(P, obs_pt, Cpp)
-    bp = _scatter_add(P, obs_pt, -gp)
+    Hcc = scatter.scatter_add(B, plans.kf, Ccc)
+    bc = scatter.scatter_add(B, plans.kf, -gc)
+    Hpp = scatter.scatter_add(P, plans.pt, Cpp)
+    bp = scatter.scatter_add(P, plans.pt, -gp)
 
-    okf, oobj, ko, chi2_o = _add_object_blocks(prob, Hcc, bc)
+    okf, oobj, ko, chi2_o = _add_object_blocks(prob, plans, Hcc, bc)
     Hcc, bc, Hpp, bp = ps(Hcc, bc, Hpp, bp)
 
     pt_live = prob.pt_valid
@@ -393,8 +435,9 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None):
     # (one edge per (kf, pt) pair), both edgewise
     hb = torch.einsum("pij,pj->pi", Hpp_inv, bp)
     contrib = torch.einsum("nij,njk,nlk->nil", Ccp, Hpp_inv[obs_pt], Ccp)
-    corr_b, corr_S = ps(_scatter_add(B, obs_kf, torch.einsum("nij,nj->ni", Ccp, hb[obs_pt])),
-                        _scatter_add(B, obs_kf, contrib))
+    corr_b, corr_S = ps(
+        scatter.scatter_add(B, plans.kf, torch.einsum("nij,nj->ni", Ccp, hb[obs_pt])),
+        scatter.scatter_add(B, plans.kf, contrib))
     bc_red = bc - corr_b
 
     free = ~_fixed_blocks(prob)
@@ -408,11 +451,11 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None):
     def matvec(x):
         x = torch.where(free[:, None], x, 0.0)
         y = torch.einsum("bij,bj->bi", Hcc, x)
-        u, = ps(_scatter_add(P, obs_pt, torch.einsum("nij,ni->nj", Ccp, x[obs_kf])))
+        u, = ps(scatter.scatter_add(P, plans.pt, torch.einsum("nij,ni->nj", Ccp, x[obs_kf])))
         v = torch.einsum("pij,pj->pi", Hpp_inv, u)
-        y_edge = _scatter_add(B, obs_kf, -torch.einsum("nij,nj->ni", Ccp, v[obs_pt]))
-        y_edge = y_edge.index_add_(0, okf, torch.einsum("mij,mj->mi", ko, x[oobj]))
-        y_edge = y_edge.index_add_(0, oobj, torch.einsum("mij,mi->mj", ko, x[okf]))
+        y_edge = scatter.scatter_add(B, plans.kf, -torch.einsum("nij,nj->ni", Ccp, v[obs_pt]))
+        scatter.index_add(y_edge, plans.okf, torch.einsum("mij,mj->mi", ko, x[oobj]))
+        scatter.index_add(y_edge, plans.oobj, torch.einsum("mij,mi->mj", ko, x[okf]))
         y_edge, = ps(y_edge)
         y = y + y_edge + damp_vec * x
         return torch.where(free[:, None], y, 0.0)
@@ -436,7 +479,7 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None):
     dx = torch.where(torch.isfinite(x), x, 0.0)
 
     # back-substitute points: dp = Hpp⁻¹ (bp − Hcpᵀ dc), edgewise
-    u, = ps(_scatter_add(P, obs_pt, torch.einsum("nij,ni->nj", Ccp, dx[obs_kf])))
+    u, = ps(scatter.scatter_add(P, plans.pt, torch.einsum("nij,ni->nj", Ccp, dx[obs_kf])))
     dp = _point_step(Hpp_inv, bp - u, pt_live)
 
     live = prob.obs_mask & prob.pt_valid[obs_pt] & prob.kf_valid[obs_kf]
@@ -450,5 +493,6 @@ def global_ba_pcg(cam, prob: BAProblem, n_iters: int = 10,
     """Global joint BA at scale: two-stage robust LM (gate between stages,
     like the reference's 5+10 scheme), each step's reduced system solved
     matrix-free by block-Jacobi-preconditioned CG."""
+    plans = _pcg_plans(prob)
     return _two_stage(cam, prob, max(n_iters // 2, 1), max(n_iters - n_iters // 2, 1),
-                      damping, lambda p, lam: _pcg_gn_step(cam, p, lam, cg_iters))
+                      damping, lambda p, lam: _pcg_gn_step(cam, p, lam, cg_iters, plans=plans))

@@ -31,6 +31,7 @@ from dsp_slam_rgbd_tpu_torch.mapping import covisibility as covis
 from dsp_slam_rgbd_tpu_torch.mapping import map_state as ms
 from dsp_slam_rgbd_tpu_torch.ops import camera as cam_ops
 from dsp_slam_rgbd_tpu_torch.ops import lie
+from dsp_slam_rgbd_tpu_torch.ops import scatter
 from dsp_slam_rgbd_tpu_torch.solvers import triangulate as tri
 
 
@@ -257,8 +258,7 @@ def update_point_geometry(state: ms.MapState) -> ms.MapState:
     normal = mean direction from the observing camera centers; [min_d,
     max_d] from the reference-KF distance and the octave of its
     observation.  Edgewise over the (K, F) observation table, O(K·F).
-    Normals sum with `index_add_`: on the card duplicate targets add in
-    atomics order, so they match another implementation to a tolerance."""
+    Normals sum in the table's order on every device (`ops/scatter.py`)."""
     K, F = state.kf_feat_pt.shape
     P = state.pt_pos.shape[0]
     centers = lie.inv_se3(state.kf_pose)[:, :3, 3]       # (K, 3)
@@ -269,7 +269,9 @@ def update_point_geometry(state: ms.MapState) -> ms.MapState:
     dirs = diff / torch.clamp_min(torch.linalg.vector_norm(diff, dim=-1, keepdim=True), 1e-9)
     tgt = torch.where(ok, pt, P).reshape(-1)
     nsum = torch.zeros(P + 1, 3, dtype=dirs.dtype, device=dirs.device)
-    nsum.index_add_(0, tgt, torch.where(ok[..., None], dirs, 0.0).reshape(-1, 3))
+    # the dump row P is read by nobody: its rows stay out of the sum
+    scatter.index_add(nsum, scatter.plan(tgt, P + 1, ok.reshape(-1)),
+                      torch.where(ok[..., None], dirs, 0.0).reshape(-1, 3))
     n_obs = torch.clamp_min(ms.point_obs_counts(state), 1).float()
     normal = nsum[:P] / n_obs[:, None]
 

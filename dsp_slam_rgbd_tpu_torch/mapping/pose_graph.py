@@ -7,7 +7,8 @@ covisibility / loop closures, scale fixed for stereo).
 
 All edge residuals e = log_sim3(S_ji · S_i · S_j⁻¹) and their Jacobians
 come from one `torch.func.vmap` of `torch.func.jacfwd` (exact, no
-hand-derived adjoints), the normal equations assemble by scatter-add, and
+hand-derived adjoints), the normal equations assemble by scatter-add in a
+fixed order (`ops/scatter.py`: the same bits on every run), and
 the dense (7K, 7K) system solves in f32 by `linalg.solve_ex` (TF32 plays
 no part in an LU solve).  The Levenberg-Marquardt accept/reject runs on
 the device: no host sync.
@@ -20,6 +21,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from dsp_slam_rgbd_tpu_torch.ops import lie
+from dsp_slam_rgbd_tpu_torch.ops import scatter
 
 
 def _edge_error(xi, Si, Sj, Sji, fix_scale: bool):
@@ -80,19 +82,22 @@ def optimize_pose_graph(poses, valid, fixed, edge_i, edge_j, edge_meas,
     # boundary, where pure GN with fixed tiny damping oscillates
     lam = torch.full((), 1e-4, device=dev)
     cost_prev = edge_cost(poses)
-    ii, ij, ji, jj = ei * K + ei, ei * K + ej, ej * K + ei, ej * K + ej
+    # the edges stay fixed through the iterations: plan their scatters once
+    ii, ij, ji, jj = (scatter.plan(a * K + c, K * K)
+                      for a, c in ((ei, ei), (ei, ej), (ej, ei), (ej, ej)))
+    pi, pj = scatter.plan(ei, K), scatter.plan(ej, K)
     for _ in range(n_iters):
         e, J = edge_errors_and_jacobians(poses[ei], poses[ej], edge_meas, fix_scale)
         Ji, Jj = J[:, :, :7], J[:, :, 7:]
         Hij = torch.einsum("edi,edj,e->eij", Ji, Jj, w)
         H = torch.zeros(K * K, 7, 7, device=dev)
-        H.index_put_((ii,), torch.einsum("edi,edj,e->eij", Ji, Ji, w), accumulate=True)
-        H.index_put_((jj,), torch.einsum("edi,edj,e->eij", Jj, Jj, w), accumulate=True)
-        H.index_put_((ij,), Hij, accumulate=True)
-        H.index_put_((ji,), Hij.transpose(-1, -2), accumulate=True)
+        scatter.index_add(H, ii, torch.einsum("edi,edj,e->eij", Ji, Ji, w))
+        scatter.index_add(H, jj, torch.einsum("edi,edj,e->eij", Jj, Jj, w))
+        scatter.index_add(H, ij, Hij)
+        scatter.index_add(H, ji, Hij.transpose(-1, -2))
         b = torch.zeros(K, 7, device=dev)
-        b.index_put_((ei,), -torch.einsum("edi,ed,e->ei", Ji, e, w), accumulate=True)
-        b.index_put_((ej,), -torch.einsum("edi,ed,e->ei", Jj, e, w), accumulate=True)
+        scatter.index_add(b, pi, -torch.einsum("edi,ed,e->ei", Ji, e, w))
+        scatter.index_add(b, pj, -torch.einsum("edi,ed,e->ei", Jj, e, w))
 
         Hd = H.reshape(K, K, 7, 7).permute(0, 2, 1, 3).reshape(K * 7, K * 7)
         Hd = torch.where(fix7[:, None] | fix7[None, :], 0.0, Hd)

@@ -84,6 +84,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mlp_sdf_f32_tiling.restype = i
     lib.mlp_sdf_f32_force_tiling.argtypes = [i]
     lib.mlp_sdf_f32_force_tiling.restype = i
+    q = ctypes.c_int64
+    lib.segment_sum_f32.argtypes = [p, p, p, p, q, q, p]
+    lib.segment_sum_f32.restype = i
+    lib.segment_sum_f64.argtypes = [p, p, p, p, q, q, p]
+    lib.segment_sum_f64.restype = i
     lib.mlp_sdf_error_string.argtypes = [i]
     lib.mlp_sdf_error_string.restype = ctypes.c_char_p
 

@@ -19,12 +19,14 @@ group": a single process, where the collective is the identity.
 
 Replicas.  The system runs the whole loop on every rank (the JAX
 package's SPMD), so the ranks make the same collectives only while their
-maps stay bit-identical.  On the card that needs every op to sum in one
-order (`index_add_` does not by default): `initialize` turns on
-`torch.use_deterministic_algorithms` for a multi-rank CUDA group
-(`keep_replicas_identical`), and the mapping stage checks with `agree`,
-once or twice a keyframe, that the ranks hold the same job and the same
-map, so a split raises at once instead of hanging in a collective.
+maps stay bit-identical.  The port's own path already gives the same bits
+on every run (its scatter-adds sum in a fixed order, `ops/scatter.py`);
+for more than one rank `initialize` also turns on
+`torch.use_deterministic_algorithms` (`keep_replicas_identical`), which
+guards every other op against a nondeterministic CUDA version, and the
+mapping stage checks with `agree`, once or twice a keyframe, that the
+ranks hold the same job and the same map, so a split raises at once
+instead of hanging in a collective.
 """
 from __future__ import annotations
 
@@ -64,12 +66,15 @@ def initialize(init_method: str, world_size: int, rank: int, device="cuda",
 
 
 def keep_replicas_identical() -> None:
-    """Make the card's ops give the same bits on every run, so that ranks
-    fed the same inputs keep the same map: deterministic scatter-adds
-    (`index_add_`, `index_put_(accumulate=True)`; slower than the atomic
-    ones), a fixed cuBLAS workspace, and `torch.empty` filled with NaN.
-    An op with no deterministic version raises.  Call before the first
-    cuBLAS call (`initialize` does)."""
+    """Make every op on the card take its deterministic version, so that
+    ranks fed the same inputs keep the same map even where a path reaches
+    an op the port does not route itself: PyTorch's sorted `index_add_`
+    and `index_put_(accumulate=True)` (several launches a call; the port's
+    own scatter-adds go through `ops/scatter.py` and repeat without this),
+    a fixed cuBLAS workspace, and `torch.empty` filled with NaN.  An op
+    with no deterministic version raises.  Process-global: the mapping
+    worker's thread shares it.  Call before the first cuBLAS call
+    (`initialize` does)."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True)
 

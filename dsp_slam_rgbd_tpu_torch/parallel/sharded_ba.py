@@ -9,8 +9,10 @@ to GSPMD in `local_ba_sharded`; here it is one all_reduce in the
 assembly (`mapping/ba.py::_assemble_and_solve`, `group=`).
 `global_ba_pcg_sharded` states the exchange of the matrix-free solver:
 one all_reduce of the blocks, one per CG matvec side
-(`mapping/ba.py::_pcg_gn_step`, `group=`).  Results equal the unsharded
-solvers up to the order of the sums.
+(`mapping/ba.py::_pcg_gn_step`, `group=`).  Each shard sums its own edges
+in a fixed order (`ops/scatter.py`, a plan per shard), so a run repeats
+bit for bit; results equal the unsharded solvers up to the order of the
+sums across shards.
 """
 from __future__ import annotations
 
@@ -71,7 +73,9 @@ def global_ba_pcg_sharded(cam, prob: ba.BAProblem, mesh, stage1_iters: int = 3,
     robust cost and a shard-local gate after each.  Returns the whole
     result on every rank (edge masks gathered back, padding cut)."""
     group = _ray_group(mesh)
-    res = ba._two_stage(cam, shard_problem(prob, mesh), stage1_iters, stage2_iters, damping,
-                        lambda p, lam: ba._pcg_gn_step(cam, p, lam, cg_iters, group),
+    shard = shard_problem(prob, mesh)
+    plans = ba._pcg_plans(shard)   # this shard's edges: one plan per shard
+    res = ba._two_stage(cam, shard, stage1_iters, stage2_iters, damping,
+                        lambda p, lam: ba._pcg_gn_step(cam, p, lam, cg_iters, group, plans),
                         group)
     return _gather_masks(res, prob, group)

@@ -4,6 +4,7 @@
   python -m dsp_slam_rgbd_tpu_torch.tools.kernel_repeat loop-fast [--runs 1]
   python -m dsp_slam_rgbd_tpu_torch.tools.kernel_repeat stress [--min-calls 600] [--seconds 60]
                                                                [--noise twin,orb,hammer]
+  python -m dsp_slam_rgbd_tpu_torch.tools.kernel_repeat drift [--runs 2] [--warn-only]
 
 Every mode makes each call of the decoder kernels it reaches three times
 on the same inputs and stream (`repeating`), counts the calls whose three
@@ -14,7 +15,7 @@ call with the rows and columns that differ and their rows within the tile.
 chip_smoke.py phase 12a's directory (`sequence_dirs.write_kitti_objects`:
 8 objects, the fixture decoder, `ReconConfig()`: the f32 pair), `--runs`
 times.  `--deterministic` turns on
-`parallel/distributed.keep_replicas_identical` first.
+`parallel/distributed.keep_replicas_identical` for its runs.
 
 `loop-fast`: the bf16 pair under `gpu_fast`, `--runs` times: the system
 loop of `tools/bench_pipeline.py` (12 frames, one pass; the bf16 value
@@ -33,11 +34,27 @@ extraction at KITTI size on a third stream) and `hammer` (memory-bound
 elementwise and reduction kernels over 256 MB on a fourth, whose small
 blocks share SMs with the decoder's CTAs).
 
+`drift`: does the whole loop repeat?  chip_smoke.py phase 12a's command
+line (its directory, all 24 frames, objects, the vocabulary bootstrapped
+from 24 frames, the default `async_kf_frames`) `--runs` times, with a
+fingerprint (`mapping_stage.map_fingerprint`, f64 sums kept on the card
+until the run ends) of the map after every stage of every keyframe job
+and of every tracked frame's pose; prints the first stage and keyframe,
+and the first frame, whose fingerprint differs from the first run's, and
+whether CameraTrajectory.txt and MapObjects.txt are byte-identical.
+`--warn-only` runs once more under
+`torch.use_deterministic_algorithms(True, warn_only=True)` and lists the
+ops of the path that warn (no deterministic CUDA version), and, from a
+`TorchFunctionMode` on the tracker's and the worker's threads, the calls
+of ops whose CUDA version PyTorch documents as nondeterministic
+(`NONDETERMINISTIC`), by op and caller.
+
 `--csrc DIR` builds the kernels from another checkout's `csrc/` (one with
-this C interface), e.g. a parent commit's.  Each mode returns, and prints
-last, its summary: {"mode", "calls", "differ", "kernels": {kernel:
+this C interface), e.g. a parent commit's.  The decoder modes return, and
+print last, their summary: {"mode", "calls", "differ", "kernels": {kernel:
 {"calls", "differ", "tilings": {"32x1": [calls, differ]}, "rows"}},
-"findings": the first 100 calls that did not repeat}.  The card only.
+"findings": the first 100 calls that did not repeat}; `drift` its own.
+The card only.
 """
 from __future__ import annotations
 
@@ -45,9 +62,11 @@ import argparse
 import contextlib
 import json
 import os
+import sys
 import tempfile
 import threading
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -66,6 +85,12 @@ SHAPES = tuple(("jacobian", F32, a, 256) for a in (1, 2, 3, 5, 8)) + tuple(
     ("value", F32, 7, 24 ** 3), ("jacobian", BF16, 8, 256), ("jacobian", BF16, 8, 1024),
     ("value", BF16, 8, 12800))
 NOISE = ("twin", "orb", "hammer")
+# ops whose CUDA version PyTorch's `use_deterministic_algorithms` documents
+# as nondeterministic (atomics, or duplicate targets written in no order)
+NONDETERMINISTIC = ("index_add", "index_add_", "index_put", "index_put_", "put_",
+                    "scatter_add", "scatter_add_", "scatter", "scatter_", "scatter_reduce",
+                    "scatter_reduce_", "index_copy", "index_copy_", "cumsum", "cumsum_",
+                    "bincount", "histc", "median", "kthvalue")
 MAX_FINDINGS = 100   # calls that did not repeat kept (and printed) in full
 
 
@@ -183,16 +208,20 @@ def loop(runs: int, deterministic: bool) -> dict:
     from dsp_slam_rgbd_tpu_torch.tools import sequence_dirs as sd
     from dsp_slam_rgbd_tpu_torch.tools.ellipsoid import FIXTURE
 
+    was = torch.are_deterministic_algorithms_enabled()
     if deterministic:
         dist.keep_replicas_identical()
-    with tempfile.TemporaryDirectory() as tmp, repeating(Tally()) as tally:
-        paths = sd.write_kitti_objects(os.path.join(tmp, "kitti"))
-        for r in range(runs):
-            lm._bucket_memo.clear()
-            run_slam.main([paths["seq"], os.path.join(tmp, f"out{r}"), "--yaml", paths["yaml"],
-                           "--labels", paths["labels"], "--deepsdf", FIXTURE,
-                           "--max-frames", "8"])
-            torch.cuda.synchronize()
+    try:
+        with tempfile.TemporaryDirectory() as tmp, repeating(Tally()) as tally:
+            paths = sd.write_kitti_objects(os.path.join(tmp, "kitti"))
+            for r in range(runs):
+                lm._bucket_memo.clear()
+                run_slam.main([paths["seq"], os.path.join(tmp, f"out{r}"), "--yaml",
+                               paths["yaml"], "--labels", paths["labels"], "--deepsdf",
+                               FIXTURE, "--max-frames", "8"])
+                torch.cuda.synchronize()
+    finally:   # the flag is process-global: later work runs as it did before
+        torch.use_deterministic_algorithms(was)
     return _report(tally.summary("loop"))
 
 
@@ -301,16 +330,178 @@ def stress(min_calls: int, seconds: float, noise: tuple) -> dict:
     return _report(out)
 
 
+class _Census(torch.overrides.TorchFunctionMode):
+    """Counts the calls of NONDETERMINISTIC ops on CUDA tensors, by op,
+    dtype and caller; entered on each thread that should be counted."""
+
+    def __init__(self, counts: dict):
+        super().__init__()
+        self.counts = counts
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", "")
+        if name in NONDETERMINISTIC:
+            t = args[0] if args and isinstance(args[0], torch.Tensor) else None
+            f = sys._getframe(1)
+            # a job run inline on the main thread enters the mode twice: the
+            # inner one sees each call again, from this frame
+            if t is not None and t.is_cuda and f.f_code.co_filename != __file__:
+                key = (f"{name} {str(t.dtype).replace('torch.', '')} "
+                       f"{os.path.relpath(f.f_code.co_filename)}:{f.f_lineno}")
+                self.counts[key] = self.counts.get(key, 0) + 1
+        return func(*args, **kwargs)
+
+
+def _twelve_a_argv(paths, out, vocab):
+    from dsp_slam_rgbd_tpu_torch.tools.ellipsoid import FIXTURE
+
+    return [paths["seq"], out, "--yaml", paths["yaml"], "--labels", paths["labels"],
+            "--deepsdf", FIXTURE, "--vocab", vocab, "--bootstrap-vocab", "24",
+            "--vocab-depth", "4", "--gt", paths["gt"]]
+
+
+@contextlib.contextmanager
+def fingerprinting(log: dict):
+    """Records, on the card, the map's fingerprint after every stage of
+    every keyframe job (`log["jobs"]`: (kid, stage, fingerprint)) and each
+    tracked frame's pose (`log["frames"]`)."""
+    from dsp_slam_rgbd_tpu_torch.system import mapping_stage as mst
+    from dsp_slam_rgbd_tpu_torch.system import slam
+
+    fp, kid = mst.map_fingerprint, [None]
+
+    def mark(stage, state):
+        log["jobs"].append((kid[0], stage, fp(state)))
+
+    def after(stage, fn, state_of):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            mark(stage, state_of(a, out))
+            return out
+        return call
+
+    process, track_frame = mst.MappingStage.process, slam.SLAMSystem.track_frame
+
+    def watched_process(self, job):
+        kid[0] = job.kid
+        mark("in", self.state)
+        log["jobs"].append((job.kid, "in frame pose", job.frame.t_cw.double().sum()[None]))
+        return process(self, job)
+
+    def watched_track_frame(self, frame, detections=None):
+        n = len(self.tracker.trajectory)
+        out = track_frame(self, frame, detections)
+        if len(self.tracker.trajectory) > n:
+            log["frames"].append(self.tracker.trajectory[-1][1].double().sum()[None])
+        return out
+
+    method = {name: after(name, getattr(mst.MappingStage, name), lambda a, out: a[0].state)
+              for name in ("_object_stage", "_finish_new_objects", "_update_bow",
+                           "_drain_gba_budget", "_loop_stage")}
+    with mock.patch.object(mst.lm, "kf_point_stage", after(
+                "kf_point_stage", mst.lm.kf_point_stage, lambda a, out: out)), \
+            mock.patch.object(mst.lm, "ba_cull_dispatch", after(
+                "ba_cull_dispatch", mst.lm.ba_cull_dispatch, lambda a, out: out["state"])), \
+            mock.patch.object(mst.MappingStage, "process", watched_process), \
+            mock.patch.object(slam.SLAMSystem, "track_frame", watched_track_frame), \
+            contextlib.ExitStack() as stack:
+        for name, fn in method.items():
+            stack.enter_context(mock.patch.object(mst.MappingStage, name, fn))
+        yield log
+
+
+def _bits(log: dict) -> dict:
+    """The log's fingerprints as host bytes (one read at the run's end)."""
+    return {"jobs": [(k, s, f.cpu().numpy().tobytes()) for k, s, f in log["jobs"]],
+            "frames": [f.cpu().numpy().tobytes() for f in log["frames"]]}
+
+
+def _first_difference(a: list, b: list, key=lambda i, x: i):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return key(i, x)
+    return None if len(a) == len(b) else key(min(len(a), len(b)), None)
+
+
+def drift(runs: int, warn_only: bool) -> dict:
+    from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
+    from dsp_slam_rgbd_tpu_torch.system import mapping_stage as mst
+    from dsp_slam_rgbd_tpu_torch.tools import run_slam
+    from dsp_slam_rgbd_tpu_torch.tools import sequence_dirs as sd
+
+    out = {"mode": "drift", "runs": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = sd.write_kitti_objects(os.path.join(tmp, "kitti"))
+        logs, files = [], []
+        for r in range(runs):
+            lm._bucket_memo.clear()
+            log = {"jobs": [], "frames": []}
+            t0 = time.perf_counter()
+            with fingerprinting(log):
+                # each run bootstraps its own vocabulary: the same command line
+                run_slam.main(_twelve_a_argv(paths, os.path.join(tmp, f"out{r}"),
+                                             os.path.join(tmp, f"vocab{r}.npz")))
+            torch.cuda.synchronize()
+            logs.append(_bits(log))
+            files.append({f: open(os.path.join(tmp, f"out{r}", f), "rb").read()
+                          for f in ("CameraTrajectory.txt", "MapObjects.txt")})
+            run = {"s": time.perf_counter() - t0, "stages": len(log["jobs"]),
+                   "frames": len(log["frames"])}
+            if r:
+                a, b = logs[0], logs[r]
+                run["first_stage_differing"] = _first_difference(
+                    a["jobs"], b["jobs"], lambda i, x: {"index": i, "kid": x and x[0],
+                                                        "stage": x and x[1]})
+                run["stages_differing"] = sum(x != y for x, y in zip(a["jobs"], b["jobs"]))
+                run["first_frame_differing"] = _first_difference(a["frames"], b["frames"])
+                run["frames_differing"] = sum(x != y for x, y in zip(a["frames"], b["frames"]))
+                run["files_identical"] = {f: files[0][f] == files[r][f] for f in files[0]}
+            out["runs"].append(run)
+            print(f"drift run {r}: {run}", flush=True)
+        if warn_only:
+            counts, caught = {}, []
+            census = _Census(counts)
+            process = mst.MappingStage.process
+
+            def counted_process(self, job):   # the worker's thread enters the mode too
+                with census:
+                    return process(self, job)
+
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with warnings.catch_warnings(record=True) as caught, census, \
+                        mock.patch.object(mst.MappingStage, "process", counted_process):
+                    warnings.simplefilter("always")
+                    lm._bucket_memo.clear()
+                    run_slam.main(_twelve_a_argv(paths, os.path.join(tmp, "out_warn"),
+                                                 os.path.join(tmp, "vocab0.npz")))
+                    torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            msgs = sorted({str(w.message).split(".")[0] for w in caught
+                           if "deterministic" in str(w.message)})
+            out["warn_only"] = {"warnings": msgs, "nondeterministic_ops": dict(sorted(
+                counts.items()))}
+            print(f"drift under warn_only: {len(msgs)} ops warn: {msgs}", flush=True)
+            for k, v in sorted(counts.items()):
+                print(f"drift op census: {k}: {v} calls", flush=True)
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("mode", choices=["loop", "loop-fast", "stress"])
-    ap.add_argument("--runs", type=int, default=None, help="loop: 12, loop-fast: 1")
+    ap.add_argument("mode", choices=["loop", "loop-fast", "stress", "drift"])
+    ap.add_argument("--runs", type=int, default=None, help="loop: 12, loop-fast: 1, drift: 2")
     ap.add_argument("--min-calls", type=int, default=600,
                     help="stress: stop after this many calls (all kernels)")
     ap.add_argument("--seconds", type=float, default=60.0, help="stress: stop after this long")
     ap.add_argument("--noise", default=",".join(NOISE),
                     help=f"stress: comma-separated, of {NOISE}, or 'none'")
     ap.add_argument("--deterministic", action="store_true")
+    ap.add_argument("--warn-only", action="store_true",
+                    help="drift: one more run under deterministic algorithms, warn_only")
     ap.add_argument("--csrc", help="build the kernels from this csrc/ directory")
     args = ap.parse_args(argv)
     noise = tuple(n for n in args.noise.split(",") if n and n != "none")
@@ -328,6 +519,8 @@ def main(argv=None) -> dict:
         return loop(12 if args.runs is None else args.runs, args.deterministic)
     if args.mode == "loop-fast":
         return loop_fast(1 if args.runs is None else args.runs)
+    if args.mode == "drift":
+        return drift(2 if args.runs is None else args.runs, args.warn_only)
     return stress(args.min_calls, args.seconds, noise)
 
 
