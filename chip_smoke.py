@@ -164,7 +164,10 @@ tests/tracking_driver.py's "mono", "loop" and "reloc" stages:
     test's bars), and the card against the port on the CPU with the same
     CPU-drawn RANSAC samples: equal closures and fused points, keyframe
     poses within 1e-3; ms of `compute_loop_sim3`, `correct_loop`,
-    `fuse_duplicate_points` and the first global-BA slice, launches, syncs;
+    `fuse_duplicate_points` and the first global-BA slice, syncs, and the
+    seconds of each of its runs; the whole sequence's launches (this
+    thread's, from a trace of the card's activity only, as phase 16
+    counts them) are traced after phase 16 and printed there;
   * 11d: retrieval at KITTI-00 capacity (tests/test_loop_scale.py's map:
     2,048 keyframe slots / 1,200 live, 300,000 point slots / 150,000
     live, 1,024 words): the packed candidate matrix's shape, one host read
@@ -233,15 +236,13 @@ frames and jobs; `system_overrides` sets `async_kf_frames` or `pipelined`):
     `tests/tracking_driver.py pipelined`): the same keyframe count (4
     synchronous, 6 pipelined) and every frame's camera center within
     RGBD_FRAME_BAND.  The pipelined run goes twice, and its two runs'
-    camera centers must be equal at every frame;
-  * 12c: tests/test_long_run.py's circuit (`tools/loop_world.py`, 117
-    224x160 stereo frames, its vocabulary) through `SLAMSystem(vocab=...)`:
-    >= 1 loop closure whose point remap is adopted (`_adopt_merge`), > 90%
-    of frames OK, ATE < 0.5 m, the lap gap and every lap-2 frame's distance
-    to its lap-1 twin < 0.5 m (that test's bars), and no job writing a
-    tensor of the state it started from (`Tensor._version`); it prints
-    `correct_loop`'s ms inside the worker and the frame ms at the
-    closure's adoption.
+    camera centers must be equal at every frame; each pipelined run must
+    finalize >= 6 frames read through pinned copies, counted per run;
+  * 12c, tests/test_long_run.py's small circuit through the same
+    `SLAMSystem(vocab=...)` loop, is no longer driven here: phase 16 runs
+    that loop (closure, remap adoption, the in-place write check) at
+    KITTI size through the command line, and the small circuit's 117
+    frames took 92-133 s of the script's 1,200.
 
 Phase 13 drives the scale-out tier (`parallel/`) and active mapping
 (`active/`); one card, so the group has one rank and scaling at N >= 2 is
@@ -291,9 +292,9 @@ tools/`) through their `main`s, as a user would:
     its pipeline part left to 14c): every fit finite and is_good, both
     bf16 kernels launched; fits/s printed beside phase 4's (not checked:
     the host sets both);
-  * 14b: `bench_tracking.main` at KITTI size: ms a frame, fps, the
-    launches of one frame;
-  * 14c: `bench_pipeline.run(frames=12, passes=1)` (short; the tool's
+  * 14b: `bench_tracking.main --frames 10` at KITTI size (the tool's
+    default is 30): ms a frame, fps, the launches of one frame;
+  * 14c: `bench_pipeline.run(frames=6, passes=1)` (short; the tool's
     default is 36 frames and 3 passes): fps, tracking-only and keyframe
     frame ms, at least one keyframe and one object, the bf16 value kernel
     launched (`gpu_fast`'s value pass; the object stage's Jacobian is f32);
@@ -316,21 +317,21 @@ Phase 15 makes every decoder kernel call three times on the same inputs
 and stream (`tools/kernel_repeat.py`) and fails if any call's three
 results are not equal bit for bit:
   * loop-fast: the bf16 pair under `gpu_fast`, `bench_pipeline`'s system
-    loop (12 frames, one pass), then `bench.py`'s batched fits over and
+    loop (6 frames, one pass), then `bench.py`'s batched fits over and
     over while a second thread runs that pipeline again;
-  * stress: the object stage's and the fits' launch sizes for 45 s on a
-    stream of their own, beside a second thread launching the f32 pair,
+  * stress: the object stage's and the fits' launch sizes for 1,500
+    calls or 15 s, whichever comes first, on a stream of their own, beside a second thread launching the f32 pair,
     ORB extraction and memory-bound kernels (whose blocks share the SMs);
   * loop: the command line over the first 8 frames of 12a's directory
-    (the f32 pair), twice, under the deterministic algorithms (turned off
+    (the f32 pair), once, under the deterministic algorithms (turned off
     again after, so that phase 16 runs as a user's process does).
   It prints calls, faults, tilings and row counts per kernel, fails unless
   the loop runs reached both pairs and the stress run all four kernels,
   and fails unless the f32 Jacobian calls would have caught the fault of
   its earlier kernel (no proxy fence in the ring) at least 5 times at the
   rates measured on it (`PARENT_FAULTS_PER_CALL`).  Nearly all of that
-  power is stress's (~700 expected faults); the loop runs' ~100 f32
-  Jacobian calls expect ~0.2 at the loop's rate, and the loops are there
+  power is stress's (~180 expected faults at 1,500 calls); the loop run's
+  ~50 f32 Jacobian calls expect ~0.1 at the loop's rate, and the loops are there
   to cover the bf16 pair and the f32 call sizes the SLAM loop makes.
 
 Phase 16 writes `tools/sequence_dirs.py::write_kitti_circuit`'s directory
@@ -342,11 +343,13 @@ command line over it on the card with the command line's default
 stream), with the arguments of `tests/tracking_driver.py circuit`, whose
 JAX run on the CPU over the same files is JAX_CIRCUIT; both load the
 10^4-word vocabulary the JAX command line bootstrapped over those files
-(`tracking_driver.CIRCUIT_VOCAB`).  Wrapped as 12c
-wraps its system (`correct_loop` timed on the worker's stream, `_adopt`
-watched for the point remap, `MappingStage.process` checked for in-place
-writes), it checks a row for every frame, > 90% OK, no keyframe dropped,
->= 1 closure adopted with its remap, the ATE, the lap gap and the
+(`tracking_driver.CIRCUIT_VOCAB`).  With its system wrapped
+(`correct_loop` timed on the worker's stream, `_adopt` watched for the
+point remap, `MappingStage.process` checked for in-place writes), it checks a row for every frame, > 90% OK, no keyframe dropped,
+>= 1 closure adopted with its remap, each closure joining the keyframes
+of the same frames as JAX_CIRCUIT's (`correct_loop`'s query and candidate
+slots through `kf_frame_id`, `tracking_driver.closure_pair`), the ATE,
+the lap gap and the
 largest lap-2 error within 1.5x JAX_CIRCUIT's, every static truth within
 0.3 m of a map object, no truth with two map objects within 1.5 m, no
 more map objects than JAX's, and both f32 kernels launched.  It prints
@@ -360,18 +363,29 @@ launches.
 
 Phase 9b runs each local BA and the PCG a second time and fails unless
 the two results are equal bit for bit; it prints the scatters' device
-time inside the PCG.  Phase 17 takes the first `ops/scatter.py::index_add`
-call from each line of the port on 9b's local BA (keyframe 500) and PCG,
-in 12a's first run (the map normals) and in phase 16 (the pose graph),
-plus two heavy-duplicate cases (2^20 rows onto 1 and onto 8 targets),
-and holds the segment-sum kernel (`csrc/segment_sum.cu`) to `index_add_`
-on the CPU bit for bit on each; it prints the kernel's ms with its plan
-reused and with the plan built in the call, `index_add_`'s (atomics) on
-the card, the plain version's (segments up to 512 rows), the bound (the
-bytes it must move over the card's memory rate) and the kernel's
-launches on each path (9b, 12a's first run, 16), each of which must be
-at least one.  It replaces no TPU kernel, so it has its own line
-(`phase 17 {"segment_sum": ...}`), not a place in the kernels line.
+time inside the PCG.  Phase 17 takes the first `ops/scatter.py` call
+(`index_add`, or `scatter_adds`: several scatters in one launch, directly
+or through `scatter_add`) from each line of the port on 9b's local BA
+(keyframe 500) and PCG, in 12a's first run (the map normals) and in phase
+16 (the pose graph), plus two heavy-duplicate cases (2^20 rows onto 1 and
+onto 8 targets).  It holds the segment-sum kernel (`csrc/segment_sum.cu`)
+to `index_add_` on the CPU bit for bit on each `index_add` and on the
+first scatter onto each output of each `scatter_adds`, and each
+`scatter_adds` call, in its one launch and in one launch a scatter, to
+the CPU's `index_add_` calls in sequence and to the plain table on the
+card, bit for bit; and the offsets kernel of the plans to
+`torch.searchsorted`.  It prints, with `tools/scatter_split.py`'s rows
+(`case_row`, `batched_row`), the device µs a call (the
+profiler's kernel times) and the host µs a call (the host clock over 200
+calls, no synchronise inside) of the kernel, its plan and `index_add_`
+(atomics) on the card, of each batched launch beside one launch a
+scatter, the plain version's ms (segments up to 512 rows), the bound
+(the bytes it must move over the card's memory rate), and on each path
+(9b, 12a's first run, 16) the segment-sum launches beside the scatter
+calls they carried and the offsets launches, each of which must be at
+least one.  These kernels replace no TPU kernel, so they have their own
+line (`phase 17 {"segment_sum": {"kernels": [...], ...}}`), not a place
+in the kernels line.
 """
 import argparse
 import contextlib
@@ -824,46 +838,68 @@ def traced(fn, top=None):
 
 
 # the fixed-order scatter-add on the main path: each phase's first call from each
-# line of the port it captures ("phase file:line" -> (out before the add, plan,
-# src), on the card), and the kernel's launches on each path
-SCATTER_CASES, SCATTER_LAUNCHES = {}, {}
+# line of the port it captures, on the card: `index_add` calls ("phase file:line" ->
+# (out before the add, plan, src)) and `scatter_adds` calls (-> [(n, [(plan, src),
+# ...]), ...]); and the kernels' launches and the scatters they carried on each path
+SCATTER_CASES, BATCH_CASES, SCATTER_LAUNCHES = {}, {}, {}
+# traces of the card's activity only that an earlier phase leaves for after phase
+# 16 (name -> a call giving `stream_launches`' result)
+LATE_TRACES = {}
 
 
 @contextlib.contextmanager
 def capturing_scatters(label, files):
-    """While the block runs (on any thread), the first `ops/scatter.py::index_add`
-    call from each line of the port's `files` (basenames) is copied into
-    SCATTER_CASES under "label file:line"."""
+    """While the block runs (on any thread), the first `ops/scatter.py` call
+    (`index_add`, or `scatter_adds` directly or through `scatter_add`) from
+    each line of the port's `files` (basenames) is copied into SCATTER_CASES
+    or BATCH_CASES under "label file:line"."""
     from dsp_slam_rgbd_tpu_torch.ops import scatter
 
-    real, lock = scatter.index_add, threading.Lock()
+    real_add, real_adds, lock = scatter.index_add, scatter.scatter_adds, threading.Lock()
+
+    def site():
+        f = sys._getframe(2)
+        while f.f_code.co_filename == scatter.__file__:   # through scatter_add
+            f = f.f_back
+        name = os.path.basename(f.f_code.co_filename)
+        return f"{label} {name}:{f.f_lineno}" if name in files else None
 
     def index_add(out, p, src):
-        f = sys._getframe(1)
-        if f.f_code.co_filename == scatter.__file__:   # through scatter_add
-            f = f.f_back
-        site = f"{label} {os.path.basename(f.f_code.co_filename)}:{f.f_lineno}"
-        if os.path.basename(f.f_code.co_filename) in files:
+        where = site()
+        if where is not None:
             with lock:
-                if site not in SCATTER_CASES:
-                    SCATTER_CASES[site] = (out.clone(), p, src.clone())
-        return real(out, p, src)
+                if where not in SCATTER_CASES:
+                    SCATTER_CASES[where] = (out.clone(), p, src.clone())
+        return real_add(out, p, src)
 
-    with mock.patch.object(scatter, "index_add", index_add):
+    def scatter_adds(*outputs):
+        where = site()
+        if where is not None:
+            with lock:
+                if where not in BATCH_CASES:
+                    BATCH_CASES[where] = [(n, [(p, src.clone()) for p, src in adds])
+                                          for n, *adds in outputs]
+        return real_adds(*outputs)
+
+    with mock.patch.object(scatter, "index_add", index_add), \
+            mock.patch.object(scatter, "scatter_adds", scatter_adds):
         yield
 
 
 @contextlib.contextmanager
 def counting_scatters(path):
-    """The segment-sum kernel's launches while the block runs, into
-    SCATTER_LAUNCHES[path] (the count reset just before, read just after)."""
+    """The segment-sum kernel's launches, the scatters they carried and the
+    offsets kernel's launches (the plans) while the block runs, into
+    SCATTER_LAUNCHES[path] (the counts reset just before, read just after)."""
     from dsp_slam_rgbd_tpu_torch.ops.cuda import segment_sum
 
     segment_sum.reset_launch_counts()
     try:
         yield
     finally:
-        SCATTER_LAUNCHES[path] = segment_sum.LAUNCHES["segment_sum"]
+        SCATTER_LAUNCHES[path] = {"segment_sum": segment_sum.LAUNCHES["segment_sum"],
+                                  "scatters": segment_sum.SCATTERS["segment_sum"],
+                                  "segment_offsets": segment_sum.LAUNCHES["segment_offsets"]}
 
 
 def bits_equal(a, b) -> bool:
@@ -919,6 +955,20 @@ def stream_launches(fn, dev):
           f"{len(launches)} launches, {len(kern)} kernels; launch events' tids "
           f"{sorted({e.get('tid') for e in events if e.get('cat') == 'cuda_runtime'})[:8]}")
     return out, len(launches), len(kern), sum(float(e.get("dur", 0.0)) for e in kern) / 1e3
+
+
+def late_traces(report, smi):
+    """11c's closing sequence traced once more after phase 16, when the
+    system loop's worker threads have ended (see `loop_phase`): its
+    launches and busy ms join the report's "loop" entry."""
+    t0 = time.perf_counter()
+    _, n, n_kern, busy = LATE_TRACES.pop("11c")()
+    close = report["loop"]["loop_close"]
+    close.update(sequence_launches=n, sequence_kernels_traced=n_kern, sequence_busy_ms=busy)
+    close["seconds"]["traced"] = time.perf_counter() - t0
+    print(f"phase 11c the whole sequence (upload, 8 BoW updates, 4 _loop_stage calls) traced "
+          f"after phase 16: {n} launches ({n_kern} of their kernels in the trace, busy "
+          f"{busy:.1f} ms); {close['seconds']['traced']:.1f} s on {smi}", flush=True)
 
 
 def keyframe_stage_phase(tr, frame, kid, smi):
@@ -1880,9 +1930,22 @@ def loop_phase(dev, smi):
     patched = {(loop_closing, "compute_loop_sim3"), (loop_closing, "correct_loop"),
                (loop_closing, "fuse_duplicate_points"), (lm, "global_ba_step")}
     originals = {(mod, name): getattr(mod, name) for mod, name in patched}
-    closing_launches, closing_busy = traced(lambda: close_loop(dev, vocab))  # warms up too
+    # the whole sequence's launches and busy ms: this thread's, from a trace of
+    # the card's activity only (as phase 16 counts `correct_loop`'s), taken
+    # after phase 16 (`late_traces`).  A trace of the host's ops over its
+    # ~80,000 launches took the tracer ~100 s; and with a trace of the card's
+    # activity only here, the process's first, 12a's traced frame (the worker
+    # launching on its own thread) ended in a segmentation fault on an H100
+    seconds = {}
+    t0 = time.perf_counter()
+    close_loop(dev, vocab)   # warms up
+    seconds["warm"] = time.perf_counter() - t0
+    LATE_TRACES["11c"] = lambda: stream_launches(lambda: close_loop(dev, vocab), dev)
+    t0 = time.perf_counter()
     (_, _, _), closing_syncs = with_syncs(lambda: close_loop(dev, vocab))
+    seconds["syncs"] = time.perf_counter() - t0
     parts = {}
+    t0 = time.perf_counter()
     try:
         for mod, name in patched:
             setattr(mod, name, _timed(originals[(mod, name)], parts, name))
@@ -1890,6 +1953,7 @@ def loop_phase(dev, smi):
     finally:
         for (mod, name), f in originals.items():
             setattr(mod, name, f)
+    seconds["timed"] = time.perf_counter() - t0
     closed_poses = mpc.state.kf_pose.cpu()
     gba_left = mpc._gba_iters_left
     drains = 0
@@ -1901,7 +1965,9 @@ def loop_phase(dev, smi):
     e_after = float(torch.linalg.vector_norm(lie.log_se3(mpc.state.kf_pose[7] @ lie.inv_se3(
         mpc.state.kf_pose[0]))))
     # the card against the CPU, the same draws (the CPU generator)
+    t0 = time.perf_counter()
     mcpu, _, remap_cpu = close_loop(torch.device("cpu"), vocab_cpu)
+    seconds["cpu"] = time.perf_counter() - t0
     pose_diff = float((closed_poses - mcpu.state.kf_pose).abs().max())
     fused = int((remap.cpu() != torch.arange(remap.shape[0])).sum()) if remap is not None else 0
     fused_cpu = int((remap_cpu != torch.arange(remap_cpu.shape[0])).sum()) \
@@ -1911,9 +1977,7 @@ def loop_phase(dev, smi):
                          "fused_points": fused, "fused_points_cpu": fused_cpu,
                          "card_vs_cpu_pose_diff": pose_diff,
                          "ms": {k: v for k, v in parts.items()},
-                         "sequence_launches": closing_launches,
-                         "sequence_busy_ms": closing_busy,
-                         "sequence_host_syncs": closing_syncs}
+                         "sequence_host_syncs": closing_syncs, "seconds": seconds}
     check(mpc.loop_closures >= 1 and 0 < gba_left < 10 and drains <= 10
           and mpc._gba_iters_left == 0 and e_after < 0.6 * e_before
           and mcpu.loop_closures >= 1 and fused == fused_cpu
@@ -1924,8 +1988,8 @@ def loop_phase(dev, smi):
           f"{fused} points fused (CPU {fused_cpu}), card vs CPU poses {pose_diff:.2e}; ms: "
           + ", ".join(f"{k} {np.mean(v):.1f}" for k, v in parts.items())
           + f"; the whole sequence (upload, 8 BoW updates, 4 _loop_stage calls): "
-          f"{closing_launches} launches (busy {closing_busy:.1f} ms), {closing_syncs} host "
-          f"syncs on {smi}", flush=True)
+          f"{closing_syncs} host syncs (launches traced after phase 16); s by run {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())} on {smi}",
+          flush=True)
 
     # ---- 11d. retrieval at KITTI-00 capacity
     K = 2048
@@ -2280,7 +2344,7 @@ def cli_objects_phase(dev, smi, tmp):
     launches = dict(mlp_sdf.LAUNCHES)
     check(launches["mlp_sdf_value_f32"] > 0 and launches["mlp_sdf_jacobian_f32"] > 0,
           f"12a both f32 kernels launched from the command line's run: {launches}")
-    check(SCATTER_LAUNCHES["12a command line"] > 0,
+    check(SCATTER_LAUNCHES["12a command line"]["segment_sum"] > 0,
           f"12a the segment-sum kernel launched from the command line's run: {SCATTER_LAUNCHES}")
     got = cli_objects_check(paths, os.path.join(tmp, "out12a"), res)
     summ, traced, misses = res["summary"], rec["traced"], rec["misses"]
@@ -2448,6 +2512,8 @@ def cli_layouts_phase(dev, smi, tmp):
     runs = {}
     for mode, tag in (("sync", "sync"), ("pipelined", "pipelined"),
                       ("pipelined", "pipelined_again")):
+        copies.clear()   # each run's own counts
+        finals.clear()
         t0 = time.perf_counter()
         with mock.patch.object(trk, "_copy_to_host_async", counted_copy), \
                 mock.patch.object(trk.Tracker, "_finalize_one", counted_finalize):
@@ -2507,88 +2573,6 @@ def cli_layouts_phase(dev, smi, tmp):
     return rep
 
 
-def system_loop_phase(dev, smi):
-    """12c: tests/test_long_run.py's circuit through `SLAMSystem(vocab=...)`
-    on the card: a closure adopted with its point remap."""
-    from dsp_slam_rgbd_tpu_torch.system import mapping_stage as mstage
-    from dsp_slam_rgbd_tpu_torch.system import slam
-    from dsp_slam_rgbd_tpu_torch.tools import loop_world as lw
-
-    t_phase = time.perf_counter()
-    xys, frames = lw.frames()
-    cfg = lw.make_cfg()
-    t0 = time.perf_counter()
-    vocab = lw.train_vocab(frames, cfg, device=dev)
-    vocab_s = time.perf_counter() - t0
-    system = slam.SLAMSystem(cfg, vocab=vocab, device=dev)
-    correct_ms, adopted = [], []
-    correct_loop = mstage.loop_closing.correct_loop
-
-    def timed_correct_loop(*a, **k):   # on the worker's thread and stream
-        torch.cuda.current_stream().synchronize()
-        t = time.perf_counter()
-        r = correct_loop(*a, **k)
-        torch.cuda.current_stream().synchronize()
-        correct_ms.append((time.perf_counter() - t) * 1e3)
-        return r
-
-    adopt = system._adopt
-
-    def watched_adopt(entry):
-        adopt(entry)
-        res = entry[1]["result"]
-        if res.pt_remap is not None:
-            adopted.append({"frame": system.tracker.frame_id + 1, "kid": res.kid})
-
-    system._adopt = watched_adopt
-    # no job (loop closing included) writes its input state's tensors in place
-    unchanged, process = [], system.mapping.process
-    fields = type(system.state)._fields
-
-    def checked_process(job):
-        state = system.mapping.state
-        before = [getattr(state, k)._version for k in fields]
-        res = process(job)
-        unchanged.append([getattr(state, k)._version for k in fields] == before)
-        return res
-
-    system.mapping.process = checked_process
-    frame_ms = []
-    mstage.loop_closing.correct_loop = timed_correct_loop
-    try:
-        for i, (left, right) in enumerate(frames):
-            t = time.perf_counter()
-            system.track_stereo(left, right, timestamp=i * 0.1)
-            frame_ms.append((time.perf_counter() - t) * 1e3)
-        ts, poses, ok_rel = system._frame_poses()
-    finally:
-        mstage.loop_closing.correct_loop = correct_loop
-        system.shutdown()
-    ok = np.array([bool(o) for _, _, o in system.tracker.trajectory])
-    ate, gap, lap2 = lw.lap_metrics(xys, ts, poses, ok_rel)
-    at_adoption = [frame_ms[a["frame"]] for a in adopted if a["frame"] < len(frame_ms)]
-    rep = {"card": smi, "frames": len(frames), "ok_share": float(ok.mean()), "n_kf": system.n_kf,
-           "loop_closures": system.loop_closures, "remaps_adopted": adopted,
-           "correct_loop_ms": correct_ms, "frame_ms_at_adoption": at_adoption,
-           "frame_ms_median": _median(frame_ms), "ate_m": ate, "lap_gap_m": gap,
-           "lap2_max_m": lap2, "blocked_ms": dict(system.blocked_ms), "vocab_s": vocab_s,
-           "phase_s": time.perf_counter() - t_phase}
-    check(system.loop_closures >= 1 and adopted, f"12c a closure adopted with its remap: {rep}")
-    check(all(unchanged), f"12c no MapState tensor written in place by a job: {unchanged}")
-    check(ok.mean() > 0.9 and ate < 0.5 and gap < 0.5 and lap2 < 0.5,
-          f"12c tests/test_long_run.py's bars: {rep}")
-    print(f"phase 12c loop circuit (tests/test_long_run.py: {len(frames)} 224x160 stereo "
-          f"frames, a 512-word vocabulary trained in {vocab_s:.1f} s): ok {ok.mean():.3f}, "
-          f"{system.n_kf} keyframes, {system.loop_closures} closure(s), remaps adopted at "
-          f"{adopted}; correct_loop in the worker {', '.join(f'{x:.1f}' for x in correct_ms)} "
-          f"ms; frame ms at the adoption {', '.join(f'{x:.1f}' for x in at_adoption)} (median "
-          f"frame {rep['frame_ms_median']:.1f}); ATE {ate:.4f} m, lap gap {gap:.4f} m, lap-2 "
-          f"{lap2:.4f} m; blocked in _adopt {system.blocked_ms['adopt']:.1f} ms, "
-          f"_prewait_mapping {system.blocked_ms['prewait']:.1f} ms; {rep['phase_s']:.0f} s on "
-          f"{smi}", flush=True)
-    return rep
-
-
 def system_phase(dev, smi, keep):
     """Phase 12 (see the module docstring) -> the report's "system" entry.
     12a's output directory, with the sequence's gt.txt, is copied to
@@ -2602,7 +2586,6 @@ def system_phase(dev, smi, keep):
         shutil.copytree(os.path.join(tmp, "out12a"), os.path.join(keep, "out12a"))
         shutil.copy(os.path.join(tmp, "kitti", "seq", "gt.txt"), os.path.join(keep, "out12a"))
         rep["cli_layouts"] = cli_layouts_phase(dev, smi, tmp)
-    rep["loop"] = system_loop_phase(dev, smi)
     rep["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 12 took {rep['phase_s']:.0f} s", flush=True)
     return rep
@@ -3229,20 +3212,20 @@ def tools_phase(dev, smi, keep, phase4_fits_per_s, ate12a):
           f"this call: {phase4_fits_per_s:.2f}), mfu {line['mfu']}, {line['model_tflops']:.3f} "
           f"TFLOP/s; every fit is_good; launches {n}; {s:.1f} s on {smi}", flush=True)
     # ---- 14b. the tracking bench at KITTI size
-    (line, launches), n, s = _launched(lambda: bench_tracking.main([]))
+    (line, launches), n, s = _launched(lambda: bench_tracking.main(["--frames", "10"]))
     check(np.isfinite(line["per_frame_ms"]) and launches > 0, f"14b tracking bench: {line}")
     rep["tracking"] = dict(line, launches_per_frame=launches, seconds=s)
-    print(f"phase 14b tools/bench_tracking.py (1241x376, 2,000 features, 8 levels, 30 frames): "
+    print(f"phase 14b tools/bench_tracking.py (1241x376, 2,000 features, 8 levels, 10 frames): "
           f"{line['per_frame_ms']:.2f} ms a frame ({line['value']:.2f} fps), {launches} "
           f"launches a frame; {s:.1f} s on {smi}", flush=True)
-    # ---- 14c. the whole pipeline, short: 12 frames, one timed pass
-    p, n, s = _launched(lambda: bench_pipeline.run(frames=12, passes=1, device=dev))
+    # ---- 14c. the whole pipeline, short: 6 frames, one timed pass
+    p, n, s = _launched(lambda: bench_pipeline.run(frames=6, passes=1, device=dev))
     paths["14c bench_pipeline"] = n
     check(p["keyframes"] >= 1 and p["objects"] >= 1 and np.isfinite(p["value"]),
           f"14c at least one keyframe and one object: {p}")
     check(n["mlp_sdf_value"] > 0, f"14c the bf16 value kernel launched (gpu_fast): {n}")
     rep["pipeline"] = dict(p, seconds=s)
-    print(f"phase 14c tools/bench_pipeline.run(frames=12, passes=1) (short: the tool's default "
+    print(f"phase 14c tools/bench_pipeline.run(frames=6, passes=1) (short: the tool's default "
           f"is 36 frames, 3 passes): {p['value']:.3f} fps, tracking-only {p['track_only_ms']} ms, "
           f"keyframe frames {p['kf_frame_ms']} ms, {p['keyframes']} keyframes, {p['objects']} "
           f"objects, sync rtt {p['sync_rtt_ms']:.3f} ms; launches {n}; {s:.1f} s on {smi}",
@@ -3276,7 +3259,8 @@ def tools_phase(dev, smi, keep, phase4_fits_per_s, ate12a):
 # (`kernel_repeat loop --runs 12 --deterministic`: 1 of 600; this phase's
 # stress run: 707 of 3,741; PERF.md §6)
 PARENT_FAULTS_PER_CALL = {"loop": 1 / 600, "stress": 707 / 3741}
-REPEAT_LOOP_RUNS, REPEAT_STRESS_S, REPEAT_STRESS_CALLS = 2, 45.0, 6000
+REPEAT_LOOP_RUNS, REPEAT_LOOP_FAST_FRAMES = 1, 6
+REPEAT_STRESS_S, REPEAT_STRESS_CALLS = 15.0, 1500
 REPEAT_MIN_EXPECTED = 5.0
 ALL_KERNELS = ("mlp_sdf_value", "mlp_sdf_jacobian", "mlp_sdf_value_f32", "mlp_sdf_jacobian_f32")
 
@@ -3286,7 +3270,7 @@ def repeat_phase(smi):
     from dsp_slam_rgbd_tpu_torch.tools import kernel_repeat as kr
 
     t_phase = time.perf_counter()
-    runs = {"loop-fast": kr.loop_fast(1),
+    runs = {"loop-fast": kr.loop_fast(1, frames=REPEAT_LOOP_FAST_FRAMES),
             "stress": kr.stress(REPEAT_STRESS_CALLS, REPEAT_STRESS_S, kr.NOISE),
             # under the deterministic algorithms, which it turns off again after
             "loop": kr.loop(REPEAT_LOOP_RUNS, deterministic=True)}
@@ -3341,7 +3325,9 @@ JAX_CIRCUIT = {"rows": 105, "ate_m": 0.02401210181415081, "max_err_m": 0.0953494
                "truth_nearest_m": [0.013450478533414047, 0.027309904655167014,
                                    0.025082025021968803, 0.017401720353472417,
                                    0.03244585199036251, 0.03542012767798931],
-               "truth_objects_within_1_5m": [1, 1, 1, 1, 1, 1]}
+               "truth_objects_within_1_5m": [1, 1, 1, 1, 1, 1],
+               # each closure's keyframes as frame ids [query, candidate]
+               "closure_pairs": [[88, 10]]}
 # phase 16's bars against JAX_CIRCUIT: 12a's band on the ATE, the lap gap and the
 # lap-2 error; 12a's 0.3 m on each truth's nearest map object;
 # `fuse_duplicate_objects`' 1.5 m
@@ -3365,11 +3351,13 @@ def circuit_phase(dev, smi):
 
     t_phase = time.perf_counter()
     correct_ms, correct_calls, adopted, unchanged, prewait = [], [], [], [], {}
+    pairs = []   # the keyframes each closure joins, as frame ids
     correct_loop = mstage.loop_closing.correct_loop
     adopt, process, prewait_mapping = (slam.SLAMSystem._adopt, mstage.MappingStage.process,
                                        slam.SLAMSystem._prewait_mapping)
 
     def timed_correct_loop(*a, **k):   # on the worker's thread and stream, untraced
+        pairs.append(td.closure_pair(a))
         torch.cuda.current_stream().synchronize()
         t = time.perf_counter()
         r = correct_loop(*a, **k)
@@ -3445,6 +3433,7 @@ def circuit_phase(dev, smi):
                                         "map_objects", "truth_nearest_m",
                                         "truth_objects_within_1_5m")},
            "summary": summ, "jax_circuit_cpu": JAX_CIRCUIT, "remaps_adopted": adopted,
+           "closure_pairs": pairs,
            "correct_loop_ms": correct_ms, "correct_loop_launches": cl_launches,
            "correct_loop_kernels_traced": cl_kernels,
            "correct_loop_replay_equal": replay_equal,
@@ -3486,7 +3475,8 @@ def circuit_phase(dev, smi):
           f"lap-2 {got['lap2_max_m']:.6f} m (JAX {jc['lap2_max_m']:.6f}); {got['map_objects']} "
           f"map objects (JAX {jc['map_objects']}), each truth's nearest "
           f"{', '.join(f'{d:.4f}' for d in got['truth_nearest_m'])} m, map objects within "
-          f"{CIRCUIT_FUSE_M} m {got['truth_objects_within_1_5m']}; decoder launches {launches}; "
+          f"{CIRCUIT_FUSE_M} m {got['truth_objects_within_1_5m']}; closures join keyframes of "
+          f"frames {pairs} (JAX {jc['closure_pairs']}); decoder launches {launches}; "
           f"write {write_s:.1f} s, run {run_s:.1f} s, correct_loop again {replay_s:.1f} s, "
           f"phase {rep['phase_s']:.0f} s on {smi}",
           flush=True)
@@ -3494,6 +3484,9 @@ def circuit_phase(dev, smi):
     check(got["rows"] == got["frames"] and ok.mean() > 0.9 and got["kf_slots_exhausted"] == 0,
           f"16 a row for every frame, > 90% tracked, no keyframe dropped: {rep}")
     check(got["loop_closures"] >= 1 and adopted, f"16 a closure adopted with its remap: {rep}")
+    check(pairs == jc["closure_pairs"],
+          f"16 the closures join the JAX command line's keyframes: frames {pairs}, JAX "
+          f"{jc['closure_pairs']}")
     for key in ("ate_m", "lap_gap_m", "lap2_max_m"):
         check(got[key] <= CIRCUIT_BAND * jc[key], f"16 {key} {got[key]} within "
               f"{CIRCUIT_BAND}x the JAX command line's {jc[key]}")
@@ -3515,77 +3508,110 @@ def circuit_phase(dev, smi):
 # ---------------------------------------------------------------------------
 # phase 17: the fixed-order scatter-add against the CPU's index_add_
 # ---------------------------------------------------------------------------
-# heavy-duplicate cases beside the main path's: (name, targets, rows, trailing shape)
-HEAVY_SCATTERS = (("heavy: every row onto one target", 1, 1 << 20, ()),
-                  ("heavy: 8 targets", 8, 1 << 20, (3,)))
 PLAIN_MAX_SEGMENT = 512   # the plain version loops over a segment's rows: timed up to this
 
 
 def scatter_phase(dev, smi, mem_bw):
     """Phase 17: the segment-sum kernel (`csrc/segment_sum.cu`, through
-    `ops/scatter.py::index_add`) on every scatter the main path captured
-    (SCATTER_CASES: 9b's local BA and PCG, 12a's map normals, phase 16's
-    pose graph) and on HEAVY_SCATTERS, each bit for bit against
-    `index_add_` on the CPU; times the kernel with its plan reused and with
-    the plan built in the call, `index_add_`'s atomics on the card, and the
-    plain version -> the report's "segment_sum" entry."""
+    `ops/scatter.py`) on every scatter the main path captured (9b's local
+    BA and PCG, 12a's map normals, phase 16's pose graph: each `index_add`
+    call, and each first scatter onto an output of each `scatter_adds`
+    call) and on two heavy-duplicate cases, each bit for bit against
+    `index_add_` on the CPU; each captured `scatter_adds` call (one launch)
+    bit for bit against the CPU's `index_add_` calls in sequence and
+    against the plain table on the card.  Times each with
+    `tools/scatter_split.py` (`case_row`, `batched_row`): device µs a call
+    from the profiler, host µs a call from the host clock over 200 calls,
+    for the kernel, its plan and `index_add_`; the batched launch beside
+    one launch a scatter -> the report's "segment_sum" entry."""
     from dsp_slam_rgbd_tpu_torch.ops import scatter
     from dsp_slam_rgbd_tpu_torch.ops.cuda import segment_sum as ss
+    from dsp_slam_rgbd_tpu_torch.tools import scatter_split as sp
 
-    g = np.random.default_rng(17)
+    t_phase = time.perf_counter()
     cases = dict(SCATTER_CASES)
-    for name, n, rows, tr in HEAVY_SCATTERS:
-        shape = (rows,) + tr
-        src = g.standard_normal(shape) * 10.0 ** g.uniform(-3, 3, shape)
-        cases[name] = (torch.tensor(g.standard_normal((n,) + tr), dtype=torch.float32,
-                                    device=dev),
-                       scatter.plan(torch.tensor(g.integers(0, n, rows), device=dev), n),
-                       torch.tensor(src, dtype=torch.float32, device=dev))
+    for site, outputs in BATCH_CASES.items():
+        for k, (n, adds) in enumerate(outputs):
+            p, src = adds[0]
+            cases[f"{site} output {k}"] = (torch.zeros((n,) + tuple(src.shape[1:]),
+                                                       dtype=src.dtype, device=dev), p, src)
+    # heavy-duplicate cases beside the main path's
+    cases.update(sp.heavy_cases(np.random.default_rng(17), dev))
     out = []
     for site, (out0, p, src) in cases.items():
-        got = scatter.index_add(out0.clone(), p, src)
-        # the CPU's route: index_add_ over the rows the plan keeps
-        want = scatter.index_add(out0.cpu(), p.to("cpu"), src.cpu())
-        equal = bits_equal(got, want.to(dev))
-        counts = p.offsets[1:] - p.offsets[:-1]
-        longest = int(counts.max()) if counts.numel() else 0
-        kept = int(p.offsets[-1])
-        rows = p.perm[:kept].sort().values   # the kept rows, in source order
-        idx_k, src_k = p.idx[rows], src[rows]
-        srcc, o = src.contiguous(), out0.clone()
-        es = out0.element_size()
-        nbytes = 2 * out0.numel() * es + src_k.numel() * es + 8 * (kept + p.offsets.numel())
-        row = {"site": site, "targets": out0.shape[0], "rows": src.shape[0], "rows_kept": kept,
-               "trailing": list(out0.shape[1:]), "dtype": str(out0.dtype).split(".")[-1],
-               "longest_segment": longest, "bit_equal": equal,
-               "ms": cuda_ms(lambda: ss.launch(o, p.perm, p.offsets, srcc), 20),
-               "ms_plan_in_call": cuda_ms(lambda: scatter.index_add(
-                   o, scatter.plan(p.idx, p.n, p.keep), src), 20),
-               "library_ms": cuda_ms(lambda: o.index_add_(0, idx_k, src_k), 20),
-               "plain_ms": cuda_ms(lambda: ss.segment_sum_plain(o, p.perm, p.offsets, srcc), 2)
-               if longest <= PLAIN_MAX_SEGMENT else None,
-               "bound_ms": nbytes / mem_bw * 1e3, "bound_by": "bytes"}
+        row = sp.case_row(site, out0, p, src)
+        o, srcc = out0.clone(), src.contiguous()
+        row["plain_ms"] = (cuda_ms(lambda: ss.segment_sum_plain(o, p.perm, p.offsets, srcc), 2)
+                           if row["longest_segment"] <= PLAIN_MAX_SEGMENT else None)
+        row["bound_ms"], row["bound_by"] = row["bytes"] / mem_bw * 1e3, "bytes"
         out.append(row)
-        print(f"phase 17 segment_sum {site}: {row['targets']} targets x {row['trailing']}, "
-              f"{kept} of {row['rows']} rows kept, longest segment {longest}; bit for bit "
-              f"index_add_ on the "
-              f"CPU: {equal}; kernel {row['ms']:.4f} ms (plan reused), "
-              f"{row['ms_plan_in_call']:.4f} ms (plan built in the call), index_add_ atomics "
-              f"{row['library_ms']:.4f} ms, plain "
+        print(f"phase 17 segment_sum {sp.describe(row)}; plain "
               + (f"{row['plain_ms']:.3f} ms" if row["plain_ms"] is not None else "not measured")
-              + f", bound {row['bound_ms']:.4f} ms (bytes) on {smi}", flush=True)
-    rep = {"name": "segment_sum", "route": "cuda",
-           "source": "dsp_slam_rgbd_tpu_torch/csrc/segment_sum.cu", "replaces": None,
-           "launches": SCATTER_LAUNCHES.get("12a command line"),
-           "launches_by_path": dict(SCATTER_LAUNCHES), "cases": out, "card": smi}
+              + f", bound {row['bound_ms'] * 1e3:.3f} us (bytes) on {smi}", flush=True)
+    batched = []
+    for site, outputs in BATCH_CASES.items():
+        row = sp.batched_row(site, [(n, *adds) for n, adds in outputs])
+        got = scatter.scatter_adds(*[(n, *adds) for n, adds in outputs])
+        plain = [torch.full_like(o, float("nan")) for o in got]
+        ss.segment_sum_table_plain([(o, p.perm, p.offsets, s.contiguous(), j == 0)
+                                    for o, (_, adds) in zip(plain, outputs)
+                                    for j, (p, s) in enumerate(adds)])
+        row["plain_equal"] = all(bits_equal(a, b) for a, b in zip(got, plain))
+        row["bound_ms"] = row["bytes"] / mem_bw * 1e3
+        batched.append(row)
+        print(f"phase 17 segment_sum batched {sp.describe_batched(row)}; the plain table on the "
+              f"card: {row['plain_equal']}; bound {row['bound_ms'] * 1e3:.3f} us (bytes) on "
+              f"{smi}", flush=True)
+    # the plan's offsets kernel against its plain version at the main path's largest plan
+    p = max((c[1] for site, c in cases.items() if not site.startswith("heavy")),
+            key=lambda q: q.idx.numel())
+    keys = torch.sort(torch.where(p.keep, p.idx, p.n) if p.keep is not None else p.idx).values
+    keys = keys.int()
+    offsets_equal = bool(torch.equal(ss.segment_offsets(keys, p.n),
+                                     ss.segment_offsets_plain(keys, p.n)))
+    offsets_row = sp.split(lambda: ss.segment_offsets(keys, p.n))
+    plain_row = sp.split(lambda: ss.segment_offsets_plain(keys, p.n))
+    for path, n in SCATTER_LAUNCHES.items():
+        print(f"phase 17 launches on {path}: segment_sum {n['segment_sum']} carrying "
+              f"{n['scatters']} scatter calls, segment_offsets {n['segment_offsets']}", flush=True)
+    # the kernels' line: the main path's (12a's) launches and its scatter's times
+    main = SCATTER_LAUNCHES.get("12a command line", {})
+    at = next((r for r in out if r["site"].startswith("12a")), out[0])
+    rep = {"kernels": [
+        {"name": "segment_sum", "route": "cuda",
+         "source": "dsp_slam_rgbd_tpu_torch/csrc/segment_sum.cu", "replaces": None,
+         "launches": main.get("segment_sum"),
+         "max_abs_err": 0.0 if all(r["bit_equal"] for r in out + batched) else None,
+         "ms": at["kernel"]["device_us"] / 1e3, "plain_ms": at["plain_ms"],
+         "bound_ms": at["bound_ms"], "bound_by": "bytes",
+         "library_ms": at["index_add_"]["device_us"] / 1e3, "site": at["site"]},
+        {"name": "segment_offsets", "route": "cuda",
+         "source": "dsp_slam_rgbd_tpu_torch/csrc/segment_sum.cu", "replaces": None,
+         "launches": main.get("segment_offsets"), "max_abs_err": 0.0 if offsets_equal else None,
+         "ms": offsets_row["device_us"] / 1e3, "plain_ms": plain_row["device_us"] / 1e3,
+         "bound_ms": (keys.numel() * 4 + (p.n + 1) * 8) / mem_bw * 1e3, "bound_by": "bytes",
+         "library_ms": plain_row["device_us"] / 1e3, "rows": keys.numel()}],
+        "launches_by_path": dict(SCATTER_LAUNCHES), "cases": out, "batched": batched,
+        "offsets_host_us": offsets_row["host_us"], "card": smi,
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"phase 17 segment_offsets at {keys.numel()} sorted keys onto {p.n} targets: equal to "
+          f"torch.searchsorted: {offsets_equal}; device {offsets_row['device_us']:.2f} us, host "
+          f"{offsets_row['host_us']:.2f} us (searchsorted device {plain_row['device_us']:.2f} "
+          f"us); phase {rep['phase_s']:.0f} s on {smi}", flush=True)
     print("phase 17 " + json.dumps({"segment_sum": rep}), flush=True)
-    check(all(r["bit_equal"] for r in out) and len(out) >= len(HEAVY_SCATTERS) + 4,
+    check(all(r["bit_equal"] for r in out) and len(out) >= len(sp.HEAVY) + 4,
           f"17 the segment-sum kernel equals index_add_ on the CPU bit for bit: "
           f"{[(r['site'], r['bit_equal']) for r in out]}")
-    check({"9b local", "9b PCG", "12a", "16"} <= {s.rsplit(" ", 1)[0] for s in SCATTER_CASES},
-          f"17 scatters captured on every path: {sorted(SCATTER_CASES)}")
-    check(all(v > 0 for v in SCATTER_LAUNCHES.values()),
-          f"17 the segment-sum kernel launched on every path: {SCATTER_LAUNCHES}")
+    check(batched and all(r["bit_equal"] and r["plain_equal"] for r in batched),
+          f"17 every batched call site equals the CPU's index_add_ calls in sequence and the "
+          f"plain table bit for bit: {[(r['site'], r['bit_equal'], r['plain_equal']) for r in batched]}")
+    check(offsets_equal, "17 the offsets kernel equals its plain version")
+    captured = {s.rsplit(" ", 1)[0] for s in list(SCATTER_CASES) + list(BATCH_CASES)}
+    check({"9b local", "9b PCG", "12a", "16"} <= captured,
+          f"17 scatters captured on every path: {sorted(captured)}")
+    check(all(v["segment_sum"] > 0 and v["segment_offsets"] > 0
+              for v in SCATTER_LAUNCHES.values()),
+          f"17 the segment-sum and offsets kernels launched on every path: {SCATTER_LAUNCHES}")
     return rep
 
 
@@ -3927,6 +3953,7 @@ def main(argv=None):
     report["repeat"] = repeat_phase(smi)
     # ---- 16. a loop closes at KITTI size with objects through the command line
     report["circuit"], paths16 = circuit_phase(dev, smi)
+    late_traces(report, smi)
     # ---- 17. the fixed-order scatter-add on the main path's scatters
     report["segment_sum"] = scatter_phase(dev, smi, mem_bw)
 

@@ -186,18 +186,20 @@ def _dense_plans(prob: BAProblem) -> BAPlans:
                            prob.oobs_mask.repeat(2)))
 
 
-def _add_object_blocks(prob: BAProblem, plans: BAPlans, Hcc, bc):
-    """Add the object edges' diagonal blocks and gradients into Hcc and bc
-    (in place).  Returns (edge keyframe blocks, edge object blocks K+o,
-    the coupling blocks Jkᵀ·w·Jo (M, 6, 6), the edges' χ²)."""
+def _object_blocks(prob: BAProblem, plans: BAPlans):
+    """The object edges' terms.  Returns (edge keyframe blocks, edge object
+    blocks K+o, the coupling blocks Jkᵀ·w·Jo (M, 6, 6), the edges' χ², the
+    (plan, src) scatters of their diagonal blocks onto Hcc and of their
+    gradients onto bc, each to follow the reprojection edges' scatter onto
+    the same output (`scatter.scatter_adds`))."""
     e_o, Jk_o, Jo_o = _object_terms(prob)
     chi2_o, w_o = _object_weights(prob, e_o)
     okf, oobj = _object_index(prob)
-    scatter.index_add(Hcc, plans.okf, torch.einsum("ndi,ndj,n->nij", Jk_o, Jk_o, w_o))
-    scatter.index_add(Hcc, plans.oobj, torch.einsum("ndi,ndj,n->nij", Jo_o, Jo_o, w_o))
-    scatter.index_add(bc, plans.okf, -torch.einsum("ndi,nd->ni", Jk_o, e_o * w_o[:, None]))
-    scatter.index_add(bc, plans.oobj, -torch.einsum("ndi,nd->ni", Jo_o, e_o * w_o[:, None]))
-    return okf, oobj, torch.einsum("ndi,ndj,n->nij", Jk_o, Jo_o, w_o), chi2_o
+    onto_H = ((plans.okf, torch.einsum("ndi,ndj,n->nij", Jk_o, Jk_o, w_o)),
+              (plans.oobj, torch.einsum("ndi,ndj,n->nij", Jo_o, Jo_o, w_o)))
+    onto_b = ((plans.okf, -torch.einsum("ndi,nd->ni", Jk_o, e_o * w_o[:, None])),
+              (plans.oobj, -torch.einsum("ndi,nd->ni", Jo_o, e_o * w_o[:, None])))
+    return okf, oobj, torch.einsum("ndi,ndj,n->nij", Jk_o, Jo_o, w_o), chi2_o, onto_H, onto_b
 
 
 def _fixed_blocks(prob: BAProblem):
@@ -248,17 +250,14 @@ def _assemble_and_solve(cam, prob: BAProblem, damping, group=None, plans=None):
     JcT_r = torch.einsum("ndi,nd,n->ni", Jc, res, w)
     JpT_r = torch.einsum("ndi,nd,n->ni", Jp, res, w)
 
-    Hcc = scatter.scatter_add(B, plans.kf, JcT_Jc)
-    bc = scatter.scatter_add(B, plans.kf, -JcT_r)
-    Hpp = scatter.scatter_add(P, plans.pt, JpT_Jp)
-    bp = scatter.scatter_add(P, plans.pt, -JpT_r)
+    # object edges couple pose blocks k and K+o inside the reduced system;
     # each (kf, pt) pair occurs at most once: a flat accumulate on (B·P)
-    Hcp = scatter.scatter_add(B * P, plans.kf_pt, JcT_Jp).view(B, P, 6, 3)
-
-    # object edges couple pose blocks k and K+o inside the reduced system
-    _, _, ko, chi2_o = _add_object_blocks(prob, plans, Hcc, bc)
-    S = scatter.scatter_add(B * B, plans.pairs,
-                            torch.cat([ko, ko.transpose(-1, -2)])).view(B, B, 6, 6)
+    _, _, ko, chi2_o, onto_H, onto_b = _object_blocks(prob, plans)
+    Hcc, bc, Hpp, bp, Hcp, S = scatter.scatter_adds(
+        (B, (plans.kf, JcT_Jc), *onto_H), (B, (plans.kf, -JcT_r), *onto_b),
+        (P, (plans.pt, JpT_Jp)), (P, (plans.pt, -JpT_r)), (B * P, (plans.kf_pt, JcT_Jp)),
+        (B * B, (plans.pairs, torch.cat([ko, ko.transpose(-1, -2)]))))
+    Hcp, S = Hcp.view(B, P, 6, 3), S.view(B, B, 6, 6)
     live = prob.obs_mask & prob.pt_valid[obs_pt] & prob.kf_valid[obs_kf]
     cost = torch.sum(torch.where(live, chi2, 0.0)) \
         + torch.sum(torch.where(prob.oobs_mask, chi2_o, 0.0))
@@ -420,13 +419,10 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None, plans
     gc = torch.einsum("ndi,nd,n->ni", Jc, res, w)
     gp = torch.einsum("ndi,nd,n->ni", Jp, res, w)
 
-    Hcc = scatter.scatter_add(B, plans.kf, Ccc)
-    bc = scatter.scatter_add(B, plans.kf, -gc)
-    Hpp = scatter.scatter_add(P, plans.pt, Cpp)
-    bp = scatter.scatter_add(P, plans.pt, -gp)
-
-    okf, oobj, ko, chi2_o = _add_object_blocks(prob, plans, Hcc, bc)
-    Hcc, bc, Hpp, bp = ps(Hcc, bc, Hpp, bp)
+    okf, oobj, ko, chi2_o, onto_H, onto_b = _object_blocks(prob, plans)
+    Hcc, bc, Hpp, bp = ps(*scatter.scatter_adds(
+        (B, (plans.kf, Ccc), *onto_H), (B, (plans.kf, -gc), *onto_b),
+        (P, (plans.pt, Cpp)), (P, (plans.pt, -gp))))
 
     pt_live = prob.pt_valid
     Hpp_inv = _hpp_inverse(Hpp, pt_live)
@@ -435,9 +431,8 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None, plans
     # (one edge per (kf, pt) pair), both edgewise
     hb = torch.einsum("pij,pj->pi", Hpp_inv, bp)
     contrib = torch.einsum("nij,njk,nlk->nil", Ccp, Hpp_inv[obs_pt], Ccp)
-    corr_b, corr_S = ps(
-        scatter.scatter_add(B, plans.kf, torch.einsum("nij,nj->ni", Ccp, hb[obs_pt])),
-        scatter.scatter_add(B, plans.kf, contrib))
+    corr_b, corr_S = ps(*scatter.scatter_adds(
+        (B, (plans.kf, torch.einsum("nij,nj->ni", Ccp, hb[obs_pt]))), (B, (plans.kf, contrib))))
     bc_red = bc - corr_b
 
     free = ~_fixed_blocks(prob)
@@ -453,10 +448,10 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None, plans
         y = torch.einsum("bij,bj->bi", Hcc, x)
         u, = ps(scatter.scatter_add(P, plans.pt, torch.einsum("nij,ni->nj", Ccp, x[obs_kf])))
         v = torch.einsum("pij,pj->pi", Hpp_inv, u)
-        y_edge = scatter.scatter_add(B, plans.kf, -torch.einsum("nij,nj->ni", Ccp, v[obs_pt]))
-        scatter.index_add(y_edge, plans.okf, torch.einsum("mij,mj->mi", ko, x[oobj]))
-        scatter.index_add(y_edge, plans.oobj, torch.einsum("mij,mi->mj", ko, x[okf]))
-        y_edge, = ps(y_edge)
+        y_edge, = ps(*scatter.scatter_adds(
+            (B, (plans.kf, -torch.einsum("nij,nj->ni", Ccp, v[obs_pt])),
+             (plans.okf, torch.einsum("mij,mj->mi", ko, x[oobj])),
+             (plans.oobj, torch.einsum("mij,mi->mj", ko, x[okf])))))
         y = y + y_edge + damp_vec * x
         return torch.where(free[:, None], y, 0.0)
 

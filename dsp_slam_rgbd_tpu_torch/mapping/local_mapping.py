@@ -268,10 +268,9 @@ def update_point_geometry(state: ms.MapState) -> ms.MapState:
     diff = state.pt_pos[pt] - centers[:, None, :]         # (K, F, 3)
     dirs = diff / torch.clamp_min(torch.linalg.vector_norm(diff, dim=-1, keepdim=True), 1e-9)
     tgt = torch.where(ok, pt, P).reshape(-1)
-    nsum = torch.zeros(P + 1, 3, dtype=dirs.dtype, device=dirs.device)
     # the dump row P is read by nobody: its rows stay out of the sum
-    scatter.index_add(nsum, scatter.plan(tgt, P + 1, ok.reshape(-1)),
-                      torch.where(ok[..., None], dirs, 0.0).reshape(-1, 3))
+    nsum = scatter.scatter_add(P + 1, scatter.plan(tgt, P + 1, ok.reshape(-1)),
+                               torch.where(ok[..., None], dirs, 0.0).reshape(-1, 3))
     n_obs = torch.clamp_min(ms.point_obs_counts(state), 1).float()
     normal = nsum[:P] / n_obs[:, None]
 

@@ -90,14 +90,12 @@ def optimize_pose_graph(poses, valid, fixed, edge_i, edge_j, edge_meas,
         e, J = edge_errors_and_jacobians(poses[ei], poses[ej], edge_meas, fix_scale)
         Ji, Jj = J[:, :, :7], J[:, :, 7:]
         Hij = torch.einsum("edi,edj,e->eij", Ji, Jj, w)
-        H = torch.zeros(K * K, 7, 7, device=dev)
-        scatter.index_add(H, ii, torch.einsum("edi,edj,e->eij", Ji, Ji, w))
-        scatter.index_add(H, jj, torch.einsum("edi,edj,e->eij", Jj, Jj, w))
-        scatter.index_add(H, ij, Hij)
-        scatter.index_add(H, ji, Hij.transpose(-1, -2))
-        b = torch.zeros(K, 7, device=dev)
-        scatter.index_add(b, pi, -torch.einsum("edi,ed,e->ei", Ji, e, w))
-        scatter.index_add(b, pj, -torch.einsum("edi,ed,e->ei", Jj, e, w))
+        H, b = scatter.scatter_adds(
+            (K * K, (ii, torch.einsum("edi,edj,e->eij", Ji, Ji, w)),
+             (jj, torch.einsum("edi,edj,e->eij", Jj, Jj, w)), (ij, Hij),
+             (ji, Hij.transpose(-1, -2))),
+            (K, (pi, -torch.einsum("edi,ed,e->ei", Ji, e, w)),
+             (pj, -torch.einsum("edi,ed,e->ei", Jj, e, w))))
 
         Hd = H.reshape(K, K, 7, 7).permute(0, 2, 1, 3).reshape(K * 7, K * 7)
         Hd = torch.where(fix7[:, None] | fix7[None, :], 0.0, Hd)

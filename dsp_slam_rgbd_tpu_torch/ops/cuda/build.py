@@ -85,10 +85,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mlp_sdf_f32_force_tiling.argtypes = [i]
     lib.mlp_sdf_f32_force_tiling.restype = i
     q = ctypes.c_int64
-    lib.segment_sum_f32.argtypes = [p, p, p, p, q, q, p]
-    lib.segment_sum_f32.restype = i
-    lib.segment_sum_f64.argtypes = [p, p, p, p, q, q, p]
-    lib.segment_sum_f64.restype = i
+    for name in ("segment_sum_table_f32", "segment_sum_table_f64"):
+        getattr(lib, name).argtypes = [ctypes.POINTER(q), i, p]
+        getattr(lib, name).restype = i
+    for name in ("segment_offsets_i32", "segment_offsets_i64"):
+        getattr(lib, name).argtypes = [p, q, q, p, p]
+        getattr(lib, name).restype = i
     lib.mlp_sdf_error_string.argtypes = [i]
     lib.mlp_sdf_error_string.restype = ctypes.c_char_p
 

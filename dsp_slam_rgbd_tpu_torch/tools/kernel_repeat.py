@@ -225,14 +225,14 @@ def loop(runs: int, deterministic: bool) -> dict:
     return _report(tally.summary("loop"))
 
 
-def loop_fast(runs: int) -> dict:
+def loop_fast(runs: int, frames: int = 12) -> dict:
     from dsp_slam_rgbd_tpu_torch.tools import bench, bench_pipeline
 
     dev = torch.device("cuda")
     errors = []
 
     def pipeline():
-        bench_pipeline.run(frames=12, passes=1, device=dev)
+        bench_pipeline.run(frames=frames, passes=1, device=dev)
 
     with repeating(Tally()) as tally:
         for _ in range(runs):

@@ -56,7 +56,8 @@ the labels, the fixture decoder, the vocabulary CIRCUIT_VOCAB, --gt) and
 the port's feature slots, and prints what `circuit_metrics` reads: the
 ATE, the largest error, the lap gap and lap-2 error, the closures,
 keyframes and dropped keyframes, the map objects and each static truth's
-nearest one, the numbers of `chip_smoke.JAX_CIRCUIT` (~6 min); with
+nearest one, and the keyframe pair of each closure as frame ids
+(`closure_pairs`), the numbers of `chip_smoke.JAX_CIRCUIT` (~6 min); with
 `--train` it bootstraps the vocabulary (25 frames, 10^4 words) as
 CIRCUIT_VOCAB was made, with k-medians seeded by `--seed S` (0, as
 CIRCUIT_VOCAB, by default).  `mono-plane` runs the JAX mono tracker on the
@@ -441,6 +442,28 @@ def cli_run(root):
             "summary": summary}
 
 
+def closure_pair(args):
+    """The frame ids of the two keyframes a `correct_loop(state, cam, kf_q,
+    kf_c, ...)` call joins (either package): [query, candidate]."""
+    state, _, kf_q, kf_c = args[:4]
+    return [int(state.kf_frame_id[int(kf_q)]), int(state.kf_frame_id[int(kf_c)])]
+
+
+def recording_closures(loop_closing, pairs):
+    """A patch of `loop_closing.correct_loop` (either package's module:
+    both mapping stages call it as a module attribute) that appends each
+    call's `closure_pair` to `pairs`."""
+    from unittest import mock
+
+    real = loop_closing.correct_loop
+
+    def correct_loop(*a, **k):
+        pairs.append(closure_pair(a))
+        return real(*a, **k)
+
+    return mock.patch.object(loop_closing, "correct_loop", correct_loop)
+
+
 def circuit_metrics(paths, out, fps=10.0):
     """The numbers phase 16 holds the port's run to, read from a command
     line's output directory over `write_kitti_circuit`'s files: the ATE
@@ -475,7 +498,8 @@ def circuit_metrics(paths, out, fps=10.0):
 
 def circuit_run(root, train=False, seed=0):
     """The JAX command line over `write_kitti_circuit`'s directory with
-    phase 16's arguments and the port's feature slots -> `circuit_metrics`.
+    phase 16's arguments and the port's feature slots -> `circuit_metrics`
+    and the keyframe pair of each closure (`closure_pairs`).
     The run loads CIRCUIT_VOCAB, as phase 16 does; with `train` it
     bootstraps the vocabulary anew from CIRCUIT_VOCAB_FRAMES frames with
     k-medians seeded by `seed` (root/vocab.npz; seed 0 made CIRCUIT_VOCAB)."""
@@ -484,7 +508,7 @@ def circuit_run(root, train=False, seed=0):
     from unittest import mock
 
     from dsp_slam_rgbd_tpu import config
-    from dsp_slam_rgbd_tpu.loop import vocabulary
+    from dsp_slam_rgbd_tpu.loop import loop_closing, vocabulary
     from dsp_slam_rgbd_tpu_torch.tools import run_slam as port_cli
     from dsp_slam_rgbd_tpu_torch.tools import sequence_dirs as sd
     from tools import run_slam as jax_cli
@@ -504,12 +528,13 @@ def circuit_run(root, train=False, seed=0):
     if not train:
         shutil.copy(CIRCUIT_VOCAB, vocab)
     argv = ["run_slam.py"] + circuit_args(paths, out, vocab, train)
+    pairs = []
     with mock.patch.object(config, "from_reference_yaml_json", sized), \
             mock.patch.object(vocabulary, "train",
                               functools.partial(vocabulary.train, seed=seed)), \
-            mock.patch.object(sys, "argv", argv):
+            mock.patch.object(sys, "argv", argv), recording_closures(loop_closing, pairs):
         jax_cli.main()
-    return circuit_metrics(paths, out)
+    return {**circuit_metrics(paths, out), "closure_pairs": pairs}
 
 
 def circuit_args(paths, out, vocab, train=False):
