@@ -3228,7 +3228,7 @@ def tools_phase(dev, smi, keep, phase4_fits_per_s, ate12a):
     print(f"phase 14c tools/bench_pipeline.run(frames=6, passes=1) (short: the tool's default "
           f"is 36 frames, 3 passes): {p['value']:.3f} fps, tracking-only {p['track_only_ms']} ms, "
           f"keyframe frames {p['kf_frame_ms']} ms, {p['keyframes']} keyframes, {p['objects']} "
-          f"objects, sync rtt {p['sync_rtt_ms']:.3f} ms; launches {n}; {s:.1f} s on {smi}",
+          f"objects; launches {n}; {s:.1f} s on {smi}",
           flush=True)
     # ---- 14d. sharded reconstruction at one rank over NCCL
     rows, n, s = _launched(lambda: bench_scaling.main([]))

@@ -39,6 +39,7 @@ from dsp_slam_rgbd_tpu_torch.ops import camera as cam_ops
 from dsp_slam_rgbd_tpu_torch.ops import lie
 from dsp_slam_rgbd_tpu_torch.ops import scatter
 from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
+from dsp_slam_rgbd_tpu_torch.utils import timers
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -398,7 +399,8 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None, plans
     group: one all_reduce merges the normal-equation blocks, one the
     edgewise Schur corrections, two each CG matvec's coupling terms (the
     point side, then the pose side), one the back-substitution and one
-    the cost.  Pose and point state stay replicated."""
+    the cost.  Pose and point state stay replicated.  The CG loop is the
+    span `ba.cg`."""
     def ps(*ts):
         return ts if group is None else dist.psum(ts, group)
 
@@ -461,16 +463,17 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None, plans
     z = torch.einsum("bij,bj->bi", Minv, b)
     p = z
     rz = torch.sum(b * z)
-    for _ in range(cg_iters):
-        Ap = matvec(p)
-        alpha = rz / torch.clamp_min(torch.sum(p * Ap), 1e-20)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = torch.einsum("bij,bj->bi", Minv, r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.clamp_min(rz, 1e-20)
-        p = z + beta * p
-        rz = rz_new
+    with timers.span("ba.cg", steps=cg_iters):
+        for _ in range(cg_iters):
+            Ap = matvec(p)
+            alpha = rz / torch.clamp_min(torch.sum(p * Ap), 1e-20)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = torch.einsum("bij,bj->bi", Minv, r)
+            rz_new = torch.sum(r * z)
+            beta = rz_new / torch.clamp_min(rz, 1e-20)
+            p = z + beta * p
+            rz = rz_new
     dx = torch.where(torch.isfinite(x), x, 0.0)
 
     # back-substitute points: dp = Hpp⁻¹ (bp − Hcpᵀ dc), edgewise

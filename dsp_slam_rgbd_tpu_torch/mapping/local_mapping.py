@@ -33,6 +33,7 @@ from dsp_slam_rgbd_tpu_torch.ops import camera as cam_ops
 from dsp_slam_rgbd_tpu_torch.ops import lie
 from dsp_slam_rgbd_tpu_torch.ops import scatter
 from dsp_slam_rgbd_tpu_torch.solvers import triangulate as tri
+from dsp_slam_rgbd_tpu_torch.utils import timers
 
 
 def _set_row(a: torch.Tensor, row: int, value) -> torch.Tensor:
@@ -698,10 +699,15 @@ def local_ba_and_cull_step(state: ms.MapState, cam, center_kf: int,
 def global_ba_step(state: ms.MapState, cam, n_iters: int = 10,
                    dense_limit: int = 96) -> ms.MapState:
     """Global joint BA over the whole map: the dense Schur path up to
-    `dense_limit` pose blocks, the matrix-free PCG path past it."""
-    def solve(prob):
-        if prob.kf_pose.shape[0] + prob.obj_pose.shape[0] <= dense_limit:
-            return ba.global_ba(cam, prob, n_iters=n_iters)
-        return ba.global_ba_pcg(cam, prob, n_iters=n_iters)
+    `dense_limit` pose blocks, the matrix-free PCG path past it.  The call
+    is the span `ba.global`, with its pose blocks, points and path."""
+    with timers.span("ba.global") as sp:
+        def solve(prob):
+            blocks = prob.kf_pose.shape[0] + prob.obj_pose.shape[0]
+            dense = blocks <= dense_limit
+            sp.set(pose_blocks=blocks, points=prob.pts.shape[0], path="dense" if dense else "pcg")
+            if dense:
+                return ba.global_ba(cam, prob, n_iters=n_iters)
+            return ba.global_ba_pcg(cam, prob, n_iters=n_iters)
 
-    return _solve_ba_optimistic(state, cam, 0, 0, True, solve)
+        return _solve_ba_optimistic(state, cam, 0, 0, True, solve)

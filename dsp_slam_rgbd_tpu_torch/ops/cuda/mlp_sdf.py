@@ -70,6 +70,7 @@ F32_TILINGS = ((32, 1), (64, 2), (32, 2))
 # count none
 LAUNCHES = {"mlp_sdf_value": 0, "mlp_sdf_jacobian": 0, "mlp_sdf_value_f32": 0,
             "mlp_sdf_jacobian_f32": 0}
+ROWS = dict(LAUNCHES)   # rows launched per kernel (each launch's n), same keys and reset
 
 
 def kernel_name(op: str, compute_dtype) -> str:
@@ -80,7 +81,7 @@ def kernel_name(op: str, compute_dtype) -> str:
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = ROWS[k] = 0
 
 
 def compatible(spec) -> bool:
@@ -500,6 +501,7 @@ def sdf_value_fused(wb, code, xyz, compute_dtype=torch.float32, tiles=None):
                                 sdf.data_ptr(), _stream())
         _raise_on(lib, err, "mlp_sdf_value")
         LAUNCHES[kernel_name("mlp_sdf_value", compute_dtype)] += 1
+        ROWS[kernel_name("mlp_sdf_value", compute_dtype)] += n
     return sdf.reshape(lead)
 
 
@@ -542,4 +544,5 @@ def sdf_and_input_jacobian_fused(wb, code, xyz, compute_dtype=torch.float32, til
                                    _stream())
         _raise_on(lib, err, "mlp_sdf_jacobian")
         LAUNCHES[kernel_name("mlp_sdf_jacobian", compute_dtype)] += 1
+        ROWS[kernel_name("mlp_sdf_jacobian", compute_dtype)] += n
     return sdf.reshape(lead), grad.reshape(lead + (IN_DIM,))

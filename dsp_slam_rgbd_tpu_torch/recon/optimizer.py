@@ -33,8 +33,10 @@ from typing import NamedTuple
 import torch
 
 from dsp_slam_rgbd_tpu_torch.ops import lie, robust
+from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
 from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
 from dsp_slam_rgbd_tpu_torch.recon import losses
+from dsp_slam_rgbd_tpu_torch.utils import timers
 
 
 class ReconConfig(NamedTuple):
@@ -114,11 +116,12 @@ def select_active_rays(res_ray, min_abs, fg_mask, ray_mask, th: float,
 
 def _gn_iteration(decoder, cfg: ReconConfig, compute_dtype, carry, rays,
                   ray_mask, depth_obs, fg_mask, pts_surface, pts_mask,
-                  n_samples: int, group=None):
+                  n_samples: int, group=None, span=timers.OFF):
     """One batched GN iteration over the given ray set at the given sample
     density.  carry = (t_obj_cam, code, good, loss, res_ray, min_abs).
     `group`: the ranks that split the decoder rows (pts_surface is this
-    rank's share)."""
+    rank's share).  `span`: the iteration's `recon.gn` span, given the
+    render term's Jacobian slots and live rows of this rank."""
     t_obj_cam, code, good, loss_prev = carry[:4]
     B, L = code.shape
     t_co = lie.inv_sim3(t_obj_cam)
@@ -158,6 +161,7 @@ def _gn_iteration(decoder, cfg: ReconConfig, compute_dtype, carry, rays,
         sums += [J.transpose(1, 2) @ J,
                  (J.transpose(1, 2) @ torch.where(mask, rr, 0.0)[..., None])[..., 0],
                  torch.sum(rr * rr, dim=-1), mask.sum(-1)]
+    span.set(jac_slots=ren.mask.numel(), jac_live=sums[7])
     sums = dist.psum(sums, group)
     H = torch.zeros(B, 7 + L, 7 + L, device=code.device)
     b = torch.zeros(B, 7 + L, device=code.device)
@@ -207,45 +211,54 @@ def reconstruct_objects_batched(decoder, cfg: ReconConfig, t_cam_obj,
       code_init: optional (B, L) start codes (zero if None).
       group: a process group whose ranks split each object's decoder rows
         (every rank passes the whole batch and gets the whole result).
+
+    The fit is the span `recon.fit`, with the decoder rows and launches of
+    each kernel inside it (`ops/cuda/mlp_sdf.py`'s `ROWS`, `LAUNCHES`); each
+    GN iteration a `recon.gn` inside it.
     """
-    dev = decoder.device
     B = t_cam_obj.shape[0]
-    L = cfg.code_len
-    code0 = (torch.zeros(B, L, device=dev) if code_init is None
-             else code_init[:, :L].float())
-    t_obj_cam0 = lie.inv_sim3(t_cam_obj.float())
-    M = cfg.num_depth_samples
-    nc = min(cfg.coarse_iterations, cfg.num_iterations) if cfg.coarse_samples > 0 else 0
-    R = rays.shape[1]
-    if group is not None:   # this rank's share of the surface points
-        start, stop, n_pad = dist.shard_range(pts_surface.shape[1], group)
-        pts_surface = dist.pad_rows(pts_surface, n_pad, 1).narrow(1, start, stop - start)
-        pts_mask = dist.pad_rows(pts_mask, n_pad, 1, False).narrow(1, start, stop - start)
+    with timers.span("recon.fit", B=B) as fit:
+        fit.count("rows", mlp_sdf.ROWS)
+        fit.count("launches", mlp_sdf.LAUNCHES)
+        dev = decoder.device
+        L = cfg.code_len
+        code0 = (torch.zeros(B, L, device=dev) if code_init is None
+                 else code_init[:, :L].float())
+        t_obj_cam0 = lie.inv_sim3(t_cam_obj.float())
+        M = cfg.num_depth_samples
+        nc = min(cfg.coarse_iterations, cfg.num_iterations) if cfg.coarse_samples > 0 else 0
+        R = rays.shape[1]
+        if group is not None:   # this rank's share of the surface points
+            start, stop, n_pad = dist.shard_range(pts_surface.shape[1], group)
+            pts_surface = dist.pad_rows(pts_surface, n_pad, 1).narrow(1, start, stop - start)
+            pts_mask = dist.pad_rows(pts_mask, n_pad, 1, False).narrow(1, start, stop - start)
 
-    def step(carry, rays_p, mask_p, depth_p, fg_p, n_samples):
-        return _gn_iteration(decoder, cfg, compute_dtype, carry, rays_p, mask_p,
-                             depth_p, fg_p, pts_surface, pts_mask, n_samples, group)
+        def step(carry, rays_p, mask_p, depth_p, fg_p, n_samples, phase):
+            with timers.span("recon.gn", phase=phase, samples=n_samples,
+                             rays=rays_p.shape[1]) as sp:
+                return _gn_iteration(decoder, cfg, compute_dtype, carry, rays_p, mask_p,
+                                     depth_p, fg_p, pts_surface, pts_mask, n_samples, group, sp)
 
-    carry = (t_obj_cam0, code0, torch.ones(B, dtype=torch.bool, device=dev),
-             torch.zeros(B, device=dev), torch.zeros(B, R, device=dev),
-             torch.full((B, R), torch.inf, device=dev))
-    for _ in range(nc):      # coarse phase: all rays, reduced depth density
-        carry = step(carry, rays, ray_mask, depth_obs, fg_mask, cfg.coarse_samples)
-    rays_f, mask_f, depth_f, fg_f = rays, ray_mask, depth_obs, fg_mask
-    if nc > 0 and cfg.active_ray_fraction < 1.0:
-        R_act = max(int(math.ceil(R * cfg.active_ray_fraction)), 1)
-        sel = select_active_rays(carry[4], carry[5], fg_mask, ray_mask,
-                                 cfg.cut_off_threshold, R_act)
-        rays_f, mask_f, depth_f, fg_f = (_gather_rays(x, sel) for x in
-                                         (rays, ray_mask, depth_obs, fg_mask))
-    if cfg.num_iterations > nc:
-        R_f = rays_f.shape[1]
-        carry = carry[:4] + (torch.zeros(B, R_f, device=dev),
-                             torch.full((B, R_f), torch.inf, device=dev))
-        for _ in range(nc, cfg.num_iterations):
-            carry = step(carry, rays_f, mask_f, depth_f, fg_f, M)
-    t_obj_cam, code, good, loss = carry[:4]
-    return ReconResult(lie.inv_sim3(t_obj_cam), code, good, loss)
+        carry = (t_obj_cam0, code0, torch.ones(B, dtype=torch.bool, device=dev),
+                 torch.zeros(B, device=dev), torch.zeros(B, R, device=dev),
+                 torch.full((B, R), torch.inf, device=dev))
+        for _ in range(nc):      # coarse phase: all rays, reduced depth density
+            carry = step(carry, rays, ray_mask, depth_obs, fg_mask, cfg.coarse_samples, "coarse")
+        rays_f, mask_f, depth_f, fg_f = rays, ray_mask, depth_obs, fg_mask
+        if nc > 0 and cfg.active_ray_fraction < 1.0:
+            R_act = max(int(math.ceil(R * cfg.active_ray_fraction)), 1)
+            sel = select_active_rays(carry[4], carry[5], fg_mask, ray_mask,
+                                     cfg.cut_off_threshold, R_act)
+            rays_f, mask_f, depth_f, fg_f = (_gather_rays(x, sel) for x in
+                                             (rays, ray_mask, depth_obs, fg_mask))
+        if cfg.num_iterations > nc:
+            R_f = rays_f.shape[1]
+            carry = carry[:4] + (torch.zeros(B, R_f, device=dev),
+                                 torch.full((B, R_f), torch.inf, device=dev))
+            for _ in range(nc, cfg.num_iterations):
+                carry = step(carry, rays_f, mask_f, depth_f, fg_f, M, "fine")
+        t_obj_cam, code, good, loss = carry[:4]
+        return ReconResult(lie.inv_sim3(t_obj_cam), code, good, loss)
 
 
 def reconstruct_object(decoder, cfg: ReconConfig, t_cam_obj, pts_surface,

@@ -167,7 +167,6 @@ def main(argv=None):
         out["pipeline_track_only_ms"] = p["track_only_ms"]
         out["pipeline_kf_frame_ms"] = p["kf_frame_ms"]
         out["pipeline_passes_fps"] = p["passes_fps"]
-        out["pipeline_sync_rtt_ms"] = p["sync_rtt_ms"]
     out["decoder"] = os.path.relpath(os.path.abspath(args.decoder))
     print(json.dumps(out), flush=True)
     return out, res
