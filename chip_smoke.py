@@ -96,6 +96,10 @@ world of `tools/bench_pipeline.py`
     reprojection error cut below 0.7x; one `global_ba_pcg(n_iters=6)`
     with B >= 1,000, every live observation (> 150,000) in the problem, a
     finite result and the error cut below 0.5x; ms and launches of each;
+    one GN step of it with the CG loop's and edge sums' kernels (2 + 1 +
+    3 x 48 launches) against the same step op by op on the card: its pose
+    update no farther from the f64 solve than twice the op-by-op one's, its
+    two edge sums within 1e-5 of the largest of their plain versions';
   * 9c: the card against the CPU on the same problems: one LM step of each
     local problem within 1e-4 (poses and points), and on the 24-keyframe
     corridor the dense and PCG solvers each within 0.03 m of the truth
@@ -257,8 +261,9 @@ not measured:
     1e-3 poses / 1e-2 points, the
     same gated edges, reprojection cut below 0.7x) and
     `global_ba_pcg_sharded` over the whole corridor against the same LM
-    stages unsharded (2e-2 / 5e-2, cut below 0.5x); ms beside the
-    unsharded ms;
+    stages unsharded (2e-2 / 5e-2, cut below 0.5x), its CG loops and edge
+    sums on the kernels (131 launches a GN step); ms beside the unsharded
+    ms;
   * 13b: `tools/run_slam.py --distributed --num-processes 1` (NCCL over
     tcp://localhost) over the first 8 frames of 12a's directory, twice:
     as it runs (one rank: no mesh), and with the system given a (1, 1)
@@ -1070,6 +1075,66 @@ def recentered(fields):
                 obj_pose=obj.astype(np.float32))
 
 
+def cg_kernels_step(cam, gprob, ba):
+    """9b: one GN step of the global BA (48 CG steps) through the kernels of
+    `ops/cuda/schur_pcg.py` (the CG loop and the step's two edge sums)
+    against the same step op by op on the card.  Each step's CG solution
+    (its pose update dx, f32) is held to the op-by-op solve of the same
+    system in f64 on the CPU: the kernels' no farther from it than twice the
+    op-by-op solve's.  The step's two edge sums, the back-substitution's
+    (`point_sums`, on the step's dx) and the reduced right-hand side's
+    (`pose_sums`, on its Hpp⁻¹ bp), are held to their plain versions on the
+    same operands within 1e-5 of the largest value.  48 CG steps on the
+    1,000-keyframe chain amplify rounding, and a rotation of 1e-4 moves a
+    T_cw's translation 0.1 m at the corridor's far end, so the stepped maps
+    are printed but not compared."""
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import schur_pcg
+
+    t0 = time.perf_counter()
+    seen = {"solve": [], "point_sums": [], "pose_sums": []}
+
+    def spy(name, real):
+        def call(*args):
+            seen[name].append((args, real(*args)))
+            return seen[name][-1][1]
+        return call
+
+    schur_pcg.reset_launch_counts()
+    with mock.patch.multiple(schur_pcg, **{k: spy(k, getattr(schur_pcg, k)) for k in seen}):
+        kern, cost_k = ba._pcg_gn_step(cam, gprob, 3e-3, 48)
+        launches = schur_pcg.LAUNCHES
+        # the plain layout: the same step op by op on the card
+        with mock.patch.object(schur_pcg, "edges", lambda plans, Ccp: schur_pcg.Edges(plans, Ccp)):
+            plain, cost_p = ba._pcg_gn_step(cam, gprob, 3e-3, 48)
+    (_, x_k), (args, x_p) = seen["solve"]
+    e = args[0]
+    e64 = schur_pcg.Edges(type(e.plans)(*(p.to("cpu") for p in e.plans[:4])), e.Ccp.cpu().double())
+    x64 = schur_pcg.solve_plain(e64, *(t.cpu().double() if t.is_floating_point() else t.cpu()
+                                       for t in args[1:8]), 48)
+    out = {"launches": launches, "dx_max": float(x64.abs().max()),
+           "dx_kernels_vs_f64": float((x_k.cpu().double() - x64).abs().max()),
+           "dx_ops_vs_f64": float((x_p.cpu().double() - x64).abs().max()),
+           "dx_kernels_vs_ops": float((x_k - x_p).abs().max())}
+    for k in ("kf_pose", "pts"):
+        out[f"{k}_kernels_vs_ops"] = float((getattr(kern, k) - getattr(plain, k)).abs().max())
+    # the kernel step's own edge sums, on its operands, against the plain layout's
+    e_k = seen["point_sums"][0][0][0]
+    sums_ok = e_k.path == "kernels"
+    for name in ("point_sums", "pose_sums"):
+        (_, vec), got = seen[name][0]
+        want = getattr(schur_pcg, name)(schur_pcg.Edges(e_k.plans, e_k.Ccp), vec)
+        err, top = float((got - want).abs().max()), float(want.abs().max())
+        out[f"{name}_err"], out[f"{name}_max"] = err, top
+        sums_ok = sums_ok and top > 0 and err <= 1e-5 * top
+    out["seconds"] = time.perf_counter() - t0
+    check(launches == 2 + 1 + 3 * 48 and float(cost_k) == float(cost_p)
+          and out["dx_kernels_vs_f64"] <= 2 * out["dx_ops_vs_f64"] and sums_ok,
+          f"9b one GN step, the CG kernels against the step op by op on the card: {out}")
+    print(f"phase 9b one GN step (48 CG steps), the CG kernels against the step op by op on "
+          f"the card: {out}", flush=True)
+    return out
+
+
 def ba_scale_phase(dev, smi):
     """Phases 9b and 9c: bundle adjustment on the KITTI-00-scale corridor
     map (`tools/corridor_map.py`: 1,000 keyframes, 200,000 points, 200
@@ -1138,6 +1203,7 @@ def ba_scale_phase(dev, smi):
     check(B >= 1000 and n_in == n_live > 150_000 and np.isfinite(after) and after < 0.5 * before
           and bool(torch.isfinite(state2.kf_pose).all()), f"9b global BA {glob}")
     check(repeats, "9b global BA (PCG): a second run equals the first bit for bit")
+    glob["cg_kernels"] = cg_kernels_step(cam, gprob, ba)
     rep.update(local_ba=local, global_ba_pcg=glob)
     print(f"phase 9b global BA (PCG, 6 LM iterations of 48 CG steps): B={B}, {n_in} edges "
           f"(every live observation), {glob['points']} point slots; reprojection {before:.3f} -> "
@@ -2117,24 +2183,34 @@ def _kernels(trace_path):
         return [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
 
 
-def mark_streams(dev, worker_stream, path):
+def mark_streams(dev, worker_stream, path, attempts=4):
     """Trace marker kernels into `path` for `stream_names`: one on the
     current (the tracker's) stream, two on `worker_stream`, after the
-    tracer has settled (it drops the first kernels of a trace)."""
+    tracer has settled (it drops the first kernels of a trace).  A trace
+    that lost a marker is taken again, up to `attempts` traces: in a
+    process that has traced before, the tracer has dropped markers from
+    some traces (a marker trace that missed the worker's two markers failed
+    12a once; 20 of 40 traces after three 12a runs in one process missed
+    one, on the commit before the CG kernels as after).  -> the traces
+    taken."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
-        for _ in range(8):
-            torch.zeros(1, device=dev)
-        torch.cuda.synchronize()
-        time.sleep(0.2)
-        torch.cuda._sleep(100)
-        with torch.cuda.stream(worker_stream):
+    for k in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(8):
+                torch.zeros(1, device=dev)
+            torch.cuda.synchronize()
+            time.sleep(0.2)
             torch.cuda._sleep(100)
-            torch.cuda._sleep(100)
-        torch.cuda.synchronize()
-        time.sleep(0.2)
-    p.export_chrome_trace(path)
+            with torch.cuda.stream(worker_stream):
+                torch.cuda._sleep(100)
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            time.sleep(0.2)
+        p.export_chrome_trace(path)
+        if sorted(stream_names(path).values()) == ["tracker stream", "worker stream"]:
+            break
+    return k
 
 
 def stream_names(marker_trace):
@@ -2223,7 +2299,7 @@ def cli_objects_run(dev, paths, out, vocab, async_kf_frames, trace_path=None):
     from dsp_slam_rgbd_tpu_torch.tools import run_slam
 
     rec = {"spans": [], "events": [], "inflight": [], "jobs": [], "job_events": [],
-           "in_job": 0, "names": None, "traced": {}, "misses": []}
+           "in_job": 0, "names": None, "marker_traces": 0, "traced": {}, "misses": []}
     track_frame, process = slam.SLAMSystem.track_frame, mapping_stage.MappingStage.process
 
     def timed_process(self, job):
@@ -2245,7 +2321,7 @@ def cli_objects_run(dev, paths, out, vocab, async_kf_frames, trace_path=None):
             and self._pending[-1][3] > self.tracker.frame_id + 1
         rec["inflight"].append(busy)
         if trace_path and rec["names"] is None and self._map_stream is not None:
-            mark_streams(dev, self._map_stream, trace_path + ".markers")
+            rec["marker_traces"] = mark_streams(dev, self._map_stream, trace_path + ".markers")
             rec["names"] = stream_names(trace_path + ".markers")
         ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
         ev[0].record()
@@ -2382,6 +2458,7 @@ def cli_objects_phase(dev, smi, tmp):
            "band_m": CLI_BAND, "jax_cli_cpu": JAX_CLI, "launches": launches,
            "track_ms": ms_.tolist(), "kf_frames": res["kf_frames"], "job_in_flight": busy.tolist(),
            "blocked_ms": res["blocked_ms"], "traced_frame": traced, "trace_misses": misses,
+           "marker_traces": rec["marker_traces"],
            "ms_tracking_idle_worker": _median(ms_[~kf & ~busy]),
            "ms_tracking_job_in_flight": _median(ms_[~kf & busy]),
            "ms_keyframe_frames": _median(ms_[kf]), "worker_jobs_s": job_s,
@@ -2412,7 +2489,8 @@ def cli_objects_phase(dev, smi, tmp):
           f"{max(e for _, _, e in got['static_center_err_m']):.4f} m; decoder launches "
           f"{launches}; write {write_s:.1f} s, run {run_s:.1f} s on {smi}", flush=True)
     print(f"phase 12a traced frame {traced['frame']} (a keyframe job in flight; streams named "
-          f"by marker kernels traced before the first frame; {len(misses)} frames traced before "
+          f"by marker kernels traced before the first frame, {rec['marker_traces']} marker "
+          f"trace(s); {len(misses)} frames traced before "
           f"it held none of the worker's kernels): traced wall {traced['wall_ms']:.1f} "
           f"ms, busy {traced['busy_ms']:.1f} ms, idle share of the traced wall "
           f"{traced['idle_share']:.3f}, of the untraced in-flight frames' median wall "
@@ -2659,9 +2737,10 @@ def sharded_recon_step(fixture, cfg, dtype, batch, mesh, tag, smi):
 def sharded_ba_step(state, mesh, smi, center=500):
     """13a: sharded local BA (the window at keyframe `center`) and sharded
     PCG (the whole map) on phase 9b's corridor against their unsharded
-    counterparts."""
+    counterparts; the sharded PCG's CG loops and edge sums in the kernels."""
     from dsp_slam_rgbd_tpu_torch.mapping import ba
     from dsp_slam_rgbd_tpu_torch.mapping import local_mapping as lm
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import schur_pcg
     from dsp_slam_rgbd_tpu_torch.parallel import sharded_ba
     from dsp_slam_rgbd_tpu_torch.tools import corridor_map as cm
     from dsp_slam_rgbd_tpu_torch.weights import ba_problem_from_numpy, ba_problem_to_numpy
@@ -2697,22 +2776,31 @@ def sharded_ba_step(state, mesh, smi, center=500):
         return ba._two_stage(cam, gprob, 3, 7, 1e-3,
                              lambda p, lam: ba._pcg_gn_step(cam, p, lam, 32))
 
-    got, want = pcg_sharded(), pcg_unsharded()
+    schur_pcg.reset_launch_counts()
+    got = pcg_sharded()
+    launches = schur_pcg.LAUNCHES
+    want = pcg_unsharded()
     before = mean_reproj(ba, cam, gprob)
     glob = {"pose_err": _diff(got.kf_pose, want.kf_pose), "pts_err": _diff(got.pts, want.pts),
+            "cg_launches": launches,
             "reproj_px_before": before,
             "reproj_px_after": mean_reproj(ba, cam, gprob._replace(kf_pose=got.kf_pose,
                                                                  pts=got.pts)),
             "ms": wall_ms(pcg_sharded, 1), "unsharded_ms": wall_ms(pcg_unsharded, 1)}
     check(glob["pose_err"] <= 2e-2 and glob["pts_err"] <= 5e-2
           and glob["reproj_px_after"] < 0.5 * before, f"13a sharded PCG: {glob}")
+    # each GN step's CG loop and two edge sums in the kernels: 1 + 4 launches
+    # a CG step with the group's sums between them, and one for each edge sum
+    check(launches > 0 and launches % (1 + 4 * 32 + 2) == 0,
+          f"13a sharded PCG on the CG kernels, 131 launches a GN step: {launches}")
     print(f"phase 13a run_sharded_ba at keyframe {center} of the corridor: one LM step (the "
           f"window recentered, 9c's gauge) pose "
           f"{local['step_pose_err']:.3g} points {local['step_pts_err']:.3g} from the unsharded "
           f"step, the whole run pose {local['pose_err']:.3g} points {local['pts_err']:.3g}; "
           f"reprojection {before:.3f} -> {local['reproj_px_after']:.3f} px; {local['ms']:.1f} ms, "
           f"unsharded {local['unsharded_ms']:.1f} ms; global_ba_pcg_sharded (3 + 7 LM "
-          f"iterations of 32 CG steps) pose {glob['pose_err']:.3g} points {glob['pts_err']:.3g}, "
+          f"iterations of 32 CG steps, {launches} CG-kernel launches) pose "
+          f"{glob['pose_err']:.3g} points {glob['pts_err']:.3g}, "
           f"reprojection {glob['reproj_px_before']:.3f} -> {glob['reproj_px_after']:.3f} px; "
           f"{glob['ms']:.1f} ms, unsharded {glob['unsharded_ms']:.1f} ms on {smi}",
           flush=True)

@@ -38,6 +38,7 @@ import torch
 from dsp_slam_rgbd_tpu_torch.ops import camera as cam_ops
 from dsp_slam_rgbd_tpu_torch.ops import lie
 from dsp_slam_rgbd_tpu_torch.ops import scatter
+from dsp_slam_rgbd_tpu_torch.ops.cuda import schur_pcg
 from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
 from dsp_slam_rgbd_tpu_torch.utils import timers
 
@@ -188,19 +189,18 @@ def _dense_plans(prob: BAProblem) -> BAPlans:
 
 
 def _object_blocks(prob: BAProblem, plans: BAPlans):
-    """The object edges' terms.  Returns (edge keyframe blocks, edge object
-    blocks K+o, the coupling blocks Jkᵀ·w·Jo (M, 6, 6), the edges' χ², the
+    """The object edges' terms.  Returns (the coupling blocks Jkᵀ·w·Jo
+    (M, 6, 6) of each edge's keyframe and object blocks, the edges' χ², the
     (plan, src) scatters of their diagonal blocks onto Hcc and of their
     gradients onto bc, each to follow the reprojection edges' scatter onto
     the same output (`scatter.scatter_adds`))."""
     e_o, Jk_o, Jo_o = _object_terms(prob)
     chi2_o, w_o = _object_weights(prob, e_o)
-    okf, oobj = _object_index(prob)
     onto_H = ((plans.okf, torch.einsum("ndi,ndj,n->nij", Jk_o, Jk_o, w_o)),
               (plans.oobj, torch.einsum("ndi,ndj,n->nij", Jo_o, Jo_o, w_o)))
     onto_b = ((plans.okf, -torch.einsum("ndi,nd->ni", Jk_o, e_o * w_o[:, None])),
               (plans.oobj, -torch.einsum("ndi,nd->ni", Jo_o, e_o * w_o[:, None])))
-    return okf, oobj, torch.einsum("ndi,ndj,n->nij", Jk_o, Jo_o, w_o), chi2_o, onto_H, onto_b
+    return torch.einsum("ndi,ndj,n->nij", Jk_o, Jo_o, w_o), chi2_o, onto_H, onto_b
 
 
 def _fixed_blocks(prob: BAProblem):
@@ -253,7 +253,7 @@ def _assemble_and_solve(cam, prob: BAProblem, damping, group=None, plans=None):
 
     # object edges couple pose blocks k and K+o inside the reduced system;
     # each (kf, pt) pair occurs at most once: a flat accumulate on (B·P)
-    _, _, ko, chi2_o, onto_H, onto_b = _object_blocks(prob, plans)
+    ko, chi2_o, onto_H, onto_b = _object_blocks(prob, plans)
     Hcc, bc, Hpp, bp, Hcp, S = scatter.scatter_adds(
         (B, (plans.kf, JcT_Jc), *onto_H), (B, (plans.kf, -JcT_r), *onto_b),
         (P, (plans.pt, JpT_Jp)), (P, (plans.pt, -JpT_r)), (B * P, (plans.kf_pt, JcT_Jp)),
@@ -382,8 +382,8 @@ def global_ba(cam, prob: BAProblem, n_iters: int = 20, damping: float = 1e-3) ->
 
 # ---------------------------------------------------------------------------
 # Matrix-free PCG Schur solver — the at-scale global BA path.  The reduced
-# system S is never formed: every S·x product is edgewise gathers/scatters
-# over the COO observation list (O(N) work and memory), preconditioned with
+# system S is never formed: every S·x product sums edge by edge over the COO
+# observation list (O(N) work and memory), preconditioned with
 # the exact Schur block diagonal (exact because each (kf, pt) pair appears
 # at most once).
 # ---------------------------------------------------------------------------
@@ -399,8 +399,14 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None, plans
     group: one all_reduce merges the normal-equation blocks, one the
     edgewise Schur corrections, two each CG matvec's coupling terms (the
     point side, then the pose side), one the back-substitution and one
-    the cost.  Pose and point state stay replicated.  The CG loop is the
-    span `ba.cg`."""
+    the cost.  Pose and point state stay replicated.
+
+    The CG loop (`solve`) and the step's two other edge sums, the reduced
+    right-hand side's correction (`pose_sums`) and the back-substitution's
+    (`point_sums`), are `ops/cuda/schur_pcg.py`'s: hand-written kernels for
+    CUDA tensors, with or without a group, op by op for CPU tensors.  The
+    loop is the span `ba.cg`, whose `path` says which ("kernels" or
+    "ops")."""
     def ps(*ts):
         return ts if group is None else dist.psum(ts, group)
 
@@ -421,7 +427,7 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None, plans
     gc = torch.einsum("ndi,nd,n->ni", Jc, res, w)
     gp = torch.einsum("ndi,nd,n->ni", Jp, res, w)
 
-    okf, oobj, ko, chi2_o, onto_H, onto_b = _object_blocks(prob, plans)
+    ko, chi2_o, onto_H, onto_b = _object_blocks(prob, plans)
     Hcc, bc, Hpp, bp = ps(*scatter.scatter_adds(
         (B, (plans.kf, Ccc), *onto_H), (B, (plans.kf, -gc), *onto_b),
         (P, (plans.pt, Cpp)), (P, (plans.pt, -gp))))
@@ -431,10 +437,10 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None, plans
 
     # reduced RHS: bc − Hcp Hpp⁻¹ bp, and the exact Schur block diagonal
     # (one edge per (kf, pt) pair), both edgewise
+    edges = schur_pcg.edges(plans, Ccp)
     hb = torch.einsum("pij,pj->pi", Hpp_inv, bp)
     contrib = torch.einsum("nij,njk,nlk->nil", Ccp, Hpp_inv[obs_pt], Ccp)
-    corr_b, corr_S = ps(*scatter.scatter_adds(
-        (B, (plans.kf, torch.einsum("nij,nj->ni", Ccp, hb[obs_pt]))), (B, (plans.kf, contrib))))
+    corr_b, corr_S = ps(schur_pcg.pose_sums(edges, hb), scatter.scatter_add(B, plans.kf, contrib))
     bc_red = bc - corr_b
 
     free = ~_fixed_blocks(prob)
@@ -445,39 +451,13 @@ def _pcg_gn_step(cam, prob: BAProblem, damping, cg_iters: int, group=None, plans
     Sdiag = Sdiag0 + torch.diag_embed(damp_vec)
     Minv = torch.linalg.inv_ex(torch.where(free[:, None, None], Sdiag, eye6))[0]
 
-    def matvec(x):
-        x = torch.where(free[:, None], x, 0.0)
-        y = torch.einsum("bij,bj->bi", Hcc, x)
-        u, = ps(scatter.scatter_add(P, plans.pt, torch.einsum("nij,ni->nj", Ccp, x[obs_kf])))
-        v = torch.einsum("pij,pj->pi", Hpp_inv, u)
-        y_edge, = ps(*scatter.scatter_adds(
-            (B, (plans.kf, -torch.einsum("nij,nj->ni", Ccp, v[obs_pt])),
-             (plans.okf, torch.einsum("mij,mj->mi", ko, x[oobj])),
-             (plans.oobj, torch.einsum("mij,mi->mj", ko, x[okf])))))
-        y = y + y_edge + damp_vec * x
-        return torch.where(free[:, None], y, 0.0)
-
     b = torch.where(free[:, None], bc_red, 0.0)
-    x = torch.zeros_like(b)
-    r = b
-    z = torch.einsum("bij,bj->bi", Minv, b)
-    p = z
-    rz = torch.sum(b * z)
-    with timers.span("ba.cg", steps=cg_iters):
-        for _ in range(cg_iters):
-            Ap = matvec(p)
-            alpha = rz / torch.clamp_min(torch.sum(p * Ap), 1e-20)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            z = torch.einsum("bij,bj->bi", Minv, r)
-            rz_new = torch.sum(r * z)
-            beta = rz_new / torch.clamp_min(rz, 1e-20)
-            p = z + beta * p
-            rz = rz_new
+    with timers.span("ba.cg", steps=cg_iters, path=edges.path):
+        x = schur_pcg.solve(edges, Hcc, Hpp_inv, ko, damp_vec, free, Minv, b, cg_iters, group)
     dx = torch.where(torch.isfinite(x), x, 0.0)
 
     # back-substitute points: dp = Hpp⁻¹ (bp − Hcpᵀ dc), edgewise
-    u, = ps(scatter.scatter_add(P, plans.pt, torch.einsum("nij,ni->nj", Ccp, dx[obs_kf])))
+    u, = ps(schur_pcg.point_sums(edges, dx))
     dp = _point_step(Hpp_inv, bp - u, pt_live)
 
     live = prob.obs_mask & prob.pt_valid[obs_pt] & prob.kf_valid[obs_kf]

@@ -91,6 +91,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("segment_offsets_i32", "segment_offsets_i64"):
         getattr(lib, name).argtypes = [p, q, q, p, p]
         getattr(lib, name).restype = i
+    for name in ("schur_pcg_solve", "schur_pcg_launch"):
+        getattr(lib, name).argtypes = [ctypes.POINTER(q), i, i, p]
+        getattr(lib, name).restype = i
     lib.mlp_sdf_error_string.argtypes = [i]
     lib.mlp_sdf_error_string.restype = ctypes.c_char_p
 

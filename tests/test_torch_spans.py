@@ -10,7 +10,7 @@ readers of them (`benchmark/metrics/`).
   * `jac_slots` is B x K and `jac_live` the live-row count the normal
     equations summed;
   * a global BA records one `ba.global`, and on the PCG path one `ba.cg`
-    a GN step, inside it;
+    a GN step, inside it, whose `path` names the CG loop's route;
   * each reader gives the number its docstring defines on a fabricated
     registry, and None where nothing was recorded or the port has no
     registry;
@@ -167,6 +167,38 @@ def test_global_ba_records_one_call_and_a_cg_span_a_step(corridor, path, limit):
     assert len(cg) == (4 if path == "pcg" else 0)
     assert all(s.root == calls[0].id and s.attrs["steps"] == 48 for s in cg)
     assert all(0 < s.host_ms < calls[0].host_ms for s in cg)
+
+
+def test_cg_span_names_the_path_the_loop_took(corridor, monkeypatch):
+    """`ba.cg` carries `path`: "ops" for CPU tensors (the plain loop);
+    "kernels" where the edges are laid out for the kernels, as CUDA
+    tensors' are."""
+    from dsp_slam_rgbd_tpu_torch.mapping import ba
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import schur_pcg
+
+    state, cam = corridor
+    with timers.recording():
+        local_mapping.global_ba_step(state, cam, n_iters=2, dense_limit=8)
+    cg = [s for s in timers.spans() if s.name == "ba.cg"]
+    assert len(cg) == 2 and all(s.attrs["path"] == "ops" for s in cg)
+    # the path the span names is the layout the solve is given
+    seen = []
+
+    def kernel_edges(plans, Ccp):
+        seen.append(schur_pcg.Edges(plans, Ccp, ccp_pt=Ccp))
+        return seen[-1]
+
+    monkeypatch.setattr(schur_pcg, "edges", kernel_edges)
+    monkeypatch.setattr(schur_pcg, "solve", lambda *a: seen.append(a[0]) or a[7])
+    monkeypatch.setattr(schur_pcg, "point_sums", lambda e, x: torch.zeros(e.plans.pt.n, 3))
+    monkeypatch.setattr(schur_pcg, "pose_sums", lambda e, v: torch.zeros(e.plans.kf.n, 6))
+    prob, _ = local_mapping.build_local_ba_problem(state, 0, 0, global_window=True)
+    timers.clear()
+    with timers.recording():
+        ba._pcg_gn_step(cam, prob, 1e-3, 4)
+    cg = [s for s in timers.spans() if s.name == "ba.cg"]
+    assert [s.attrs["path"] for s in cg] == ["kernels"]
+    assert len(seen) == 2 and seen[1] is seen[0] and seen[0].path == "kernels"
 
 
 def test_stage_timers_summarize_the_registry():
