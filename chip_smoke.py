@@ -62,6 +62,24 @@ Tolerances (kernel vs plain version, same inputs, on the card):
   * one f32 GN iteration, kernels on the card vs plain versions on the
     CPU: pose and code atol 2e-3.
 
+Phase 7b drives DeepSDF's published ShapeNet layout (latent 256, 8 x 512,
+latent_in (4,); `examples/chairs/specs.json`) on its trained fixture
+(`tests/fixtures/ellipsoid_decoder_256.npz`) through
+`reconstruct_objects_batched`: one batch of the benchmark cell
+`recon_b128.deepsdf256` in bf16 (its configuration, and the first batch
+of its traffic from SEED_256) and one batch of `recon_b8.f32`'s traffic in
+f32 (that cell's optimizer and preset at code_len 256), each with the
+decoder counts reset just before it.  Every launch's rows are recorded,
+and the code and xyz of the first launch of each row count.  It fails
+unless only that dtype's two kernels ran, no plain sweep or plain version
+did, every pose is finite and the mean translation error falls.  Then
+each of the four 256 kernels is held to its plain version on those
+inputs, at phase 3's tolerances, and timed beside its plain version, one
+`torch.matmul` per product of the unfolded model and its bound: in bf16
+from the work the folded kernels do (`benchmark/yardstick/
+decoder_work.py`), in f32 from the model's (the f32 kernels fold nothing).
+These are the 256 entries of the kernels line.
+
 Phase 8 drives the per-frame tracking path, and phase 9 the keyframe
 stage and bundle adjustment (torch ops on the card; they launch no
 kernel of the port), at KITTI size: 1241x376 uint8 images, fx = fy =
@@ -409,6 +427,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "ellipsoid_decoder_64.npz")
+FIXTURE_256 = os.path.join(ROOT, "tests", "fixtures", "ellipsoid_decoder_256.npz")
+SEED_256 = 2 ** 31 + 2113    # phase 7b's traffic: past 32 signed bits, as the benchmark's
 
 SDF_ATOL, JAC_ATOL, TIE = 2e-5, 2e-4, 1e-6
 BF16_SDF_ATOL, BF16_JAC_FROB, BF16_TIE = 1e-2, 2e-2, 1e-2
@@ -565,6 +585,50 @@ def hold_bf16_jacobian(mlp_sdf, wb, tiles, code, xyz, tag):
           and case["jac_err_own_masks_agreeing_rows"] <= BF16_JAC_FROB
           and case["tie_pre_max"] < BF16_TIE and n_differ <= 8 + n_rows // 5, f"{tag}: {case}")
     return s_k, g_k, g_m, case
+
+
+def time_bf16_kernel(mlp_sdf, dec, kind, code, xyz, flops, io, peak_bf16, mem_bw):
+    """The bf16 kernel `kind` ("value" or "jacobian") of decoder dec on
+    (code, xyz): held to its plain version at the bf16 tolerances above,
+    its time (20 calls), the plain version's (5), one bf16 torch.matmul per
+    product of the unfolded model (20), and its bound from the operations
+    `flops` and the bytes `io` it must do, over the card's peaks."""
+    bf = torch.bfloat16
+    wb = dec.packed(bf)
+    w0, W, _ = wb
+    rows, dev = xyz.numel() // 3, xyz.device
+    jac = kind == "jacobian"
+    kern = (functools.partial(mlp_sdf.sdf_and_input_jacobian_fused, tiles=dec.jacobian_tiles)
+            if jac else functools.partial(mlp_sdf.sdf_value_fused, tiles=dec.value_tiles))
+    plain = mlp_sdf.sdf_and_input_jacobian_plain if jac else mlp_sdf.sdf_value_plain
+    if jac:
+        _, g_k, g_m, _ = hold_bf16_jacobian(mlp_sdf, wb, dec.jacobian_tiles, code, xyz,
+                                            f"jacobian at {rows} rows")
+        err = float((g_k - g_m).abs().max())
+    else:
+        err = float((kern(wb, code, xyz, bf) - plain(wb, code, xyz, bf)).abs().max())
+        check(err <= BF16_SDF_ATOL, f"value at {rows} rows: sdf {err}")
+    rand = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn(rows, w0.shape[0], device=dev, dtype=bf, generator=rand)
+    h = torch.randn(rows, 512, device=dev, dtype=bf, generator=rand)
+
+    def library():       # the same products, one torch.matmul each
+        torch.matmul(x, w0)
+        for i in range(8):
+            torch.matmul(h, W[i])
+        if jac:
+            for i in range(8):
+                torch.matmul(h, W[i].T)
+
+    ms = cuda_ms(lambda: kern(wb, code, xyz, bf), 20)
+    plain_ms = cuda_ms(lambda: plain(wb, code, xyz, bf), 5)
+    library_ms = cuda_ms(library, 20)
+    t_ops, t_bytes = flops / peak_bf16 * 1e3, io / mem_bw * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": err, "rows": rows, "dtype": "bf16",
+            "tflops": flops / ms / 1e9}
 
 
 def _median(xs):
@@ -1394,15 +1458,22 @@ def time_f32_kernel(mlp_sdf, dec, kind, rows, n_obj, mem_bw, dev):
     Jacobian's w0ᵀ block once per CTA)."""
     from dsp_slam_rgbd_tpu_torch.tools import ellipsoid
 
-    wb = dec.packed(torch.float32)
-    w0, W, _ = wb
     g = np.random.default_rng(rows)
-    code_np = g.standard_normal((n_obj, 64))
+    code_np = g.standard_normal((n_obj, dec.spec.latent_size))
     dirs = g.standard_normal((n_obj, rows // n_obj, 3))
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
     xyz_np = dirs * ellipsoid.code_to_axes(code_np)[:, None] * g.uniform(0.8, 1.2, dirs.shape[:2] + (1,))
     code = torch.tensor(code_np, dtype=torch.float32, device=dev)
     xyz = torch.tensor(xyz_np, dtype=torch.float32, device=dev)
+    return time_f32_inputs(mlp_sdf, dec, kind, code, xyz, mem_bw)
+
+
+def time_f32_inputs(mlp_sdf, dec, kind, code, xyz, mem_bw):
+    """`time_f32_kernel`'s measurements on given (code, xyz)."""
+    wb = dec.packed(torch.float32)
+    w0, W, _ = wb
+    lay = mlp_sdf.layout_of(w0)
+    rows, dev = xyz.numel() // 3, xyz.device
     jac = kind == "jacobian"
     tiles = dec.tiles(torch.float32, jacobian=jac)
     kern = functools.partial(mlp_sdf.sdf_and_input_jacobian_fused if jac
@@ -1421,7 +1492,7 @@ def time_f32_kernel(mlp_sdf, dec, kind, rows, n_obj, mem_bw, dev):
           <= SDF_ATOL, f"f32 {kind} at {rows} rows: sdf {err}")
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off for the f32 library time")
     rand = torch.Generator(device=dev).manual_seed(rows)
-    x = torch.randn(rows, 128, device=dev, generator=rand)
+    x = torch.randn(rows, w0.shape[0], device=dev, generator=rand)
     h = torch.randn(rows, 512, device=dev, generator=rand)
 
     def library():       # the same products, one f32 torch.matmul each
@@ -1433,7 +1504,7 @@ def time_f32_kernel(mlp_sdf, dec, kind, rows, n_obj, mem_bw, dev):
                 torch.matmul(h, W[i].T)
 
     ms = cuda_ms(lambda: kern(wb, code, xyz), 10)
-    bm, cluster = mlp_sdf.f32_tiling(kind, rows)
+    bm, cluster = mlp_sdf.f32_tiling(kind, rows, lay.latent)
     tiling_ms = {}
     try:
         for t in mlp_sdf.F32_TILINGS:
@@ -1444,12 +1515,12 @@ def time_f32_kernel(mlp_sdf, dec, kind, rows, n_obj, mem_bw, dev):
     plain_ms = cuda_ms(lambda: plain(wb, code, xyz), 3)
     library_ms = cuda_ms(library, 10)
     tiles_n = -(-rows // bm)
-    l2_bytes = tiles_n * 4 * (mlp_sdf.F32_VALUE_FLOATS + (
-        mlp_sdf.F32_BACKWARD_FLOATS + (cluster - 1) * 512 * 128 if jac else 0))
+    l2_bytes = tiles_n * 4 * (lay.f32_value_floats + (
+        lay.f32_backward_floats + (cluster - 1) * mlp_sdf.D * lay.in_pad if jac else 0))
     fwd_macs = sum(i * o for i, o in dec.spec.layer_dims())
     flops = 2.0 * fwd_macs * rows * (2 if jac else 1)
     io = (sum(t.numel() * 4 for t in wb) + code.numel() * 4 + xyz.numel() * 4
-          + rows * 4 * (1 + (67 if jac else 0)))
+          + rows * 4 * (1 + (lay.in_dim if jac else 0)))
     t_ops, t_bytes = flops / F32_PEAK * 1e3, io / mem_bw * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -3703,6 +3774,145 @@ def scatter_phase(dev, smi, mem_bw):
     return rep
 
 
+@contextlib.contextmanager
+def recording_launches(mlp_sdf, deepsdf):
+    """Records, while open, each decoder kernel call's rows ("launches": (op,
+    rows) -> calls), the code and xyz of the first call of each (op, rows)
+    ("inputs"), and the calls of the plain versions and of the decoder's
+    plain sweep ("plain")."""
+    rec = {"launches": {}, "inputs": {}, "plain": 0}
+
+    def kernel(op, fn):
+        def call(wb, code, xyz, *args, **kwargs):
+            key = (op, xyz.numel() // 3)
+            rec["launches"][key] = rec["launches"].get(key, 0) + 1
+            if key not in rec["inputs"]:
+                rec["inputs"][key] = (code.detach().clone(), xyz.detach().clone())
+            return fn(wb, code, xyz, *args, **kwargs)
+        return call
+
+    def plain(fn):
+        def call(*args, **kwargs):
+            rec["plain"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for op, name in (("value", "sdf_value_fused"),
+                         ("jacobian", "sdf_and_input_jacobian_fused")):
+            stack.enter_context(mock.patch.object(mlp_sdf, name,
+                                                  kernel(op, getattr(mlp_sdf, name))))
+        for name in ("sdf_value_plain", "sdf_and_input_jacobian_plain"):
+            stack.enter_context(mock.patch.object(mlp_sdf, name, plain(getattr(mlp_sdf, name))))
+        stack.enter_context(mock.patch.object(deepsdf.DeepSDFDecoder, "_forward_sweep",
+                                              plain(deepsdf.DeepSDFDecoder._forward_sweep)))
+        yield rec
+
+
+def _load_json(*parts):
+    with open(os.path.join(ROOT, *parts)) as f:
+        return json.load(f)
+
+
+def deepsdf256_phase(dev, smi, peak_bf16, mem_bw):
+    """Phase 7b (see the module's docstring) -> (report, the kernels line's
+    entries of the four latent-256 kernels)."""
+    from benchmark.traffic import ellipsoid as traffic_gen
+    from benchmark.yardstick import decoder_work
+    from dsp_slam_rgbd_tpu_torch.models import deepsdf
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
+    from dsp_slam_rgbd_tpu_torch.recon import optimizer as opt
+
+    t_phase = time.perf_counter()
+    dec = deepsdf.load_npz(FIXTURE_256, device=dev)
+    check(dec.spec.latent_size == 256 and dec.fused, f"the 256 fixture takes the kernels: {dec.spec}")
+    bf16_cfg = _load_json("benchmark", "configs", "shapenet_deepsdf256_gpu_fast.json")
+    f32_cfg = _load_json("benchmark", "configs", "kitti_cars64_f32.json")
+    runs = (("b128 bf16", "ellipsoid_b128", torch.bfloat16,
+             {**bf16_cfg["optimizer"], **bf16_cfg["preset"]}),
+            ("b8 f32", "ellipsoid_b8", torch.float32,
+             {**f32_cfg["optimizer"], **f32_cfg["preset"], "code_len": 256}))
+    rep, inputs = {"card": smi}, {}
+    for label, traffic, dtype, recon in runs:
+        params = _load_json("benchmark", "traffic", traffic + ".json")
+        p = traffic_gen.make_pool(params, SEED_256)[0]
+        B, N, R = (int(params[k]) for k in ("objects_per_batch", "points", "rays"))
+        args = (torch.as_tensor(p["T_init"], device=dev), torch.as_tensor(p["pts"], device=dev),
+                torch.ones(B, N, dtype=torch.bool, device=dev),
+                torch.as_tensor(p["rays"], device=dev),
+                torch.ones(B, R, dtype=torch.bool, device=dev),
+                torch.as_tensor(p["depth"], device=dev), torch.as_tensor(p["fg_mask"], device=dev))
+        mlp_sdf.reset_launch_counts()
+        with recording_launches(mlp_sdf, deepsdf) as rec:
+            out = opt.reconstruct_objects_batched(dec, opt.ReconConfig(**recon), *args,
+                                                  compute_dtype=dtype)
+            torch.cuda.synchronize()
+        launches, rows = dict(mlp_sdf.LAUNCHES), dict(mlp_sdf.ROWS)
+        mine = {mlp_sdf.kernel_name(op, dtype) for op in ("mlp_sdf_value", "mlp_sdf_jacobian")}
+        check(all(launches[k] > 0 for k in mine) and not any(launches[k] for k in launches
+                                                             if k not in mine),
+              f"7b {label}: both {dtype} kernels and no other: {launches}")
+        check(sum(rec["launches"].values()) == sum(launches.values()),
+              f"7b {label}: every launch recorded: {rec['launches']} against {launches}")
+        check(rec["plain"] == 0, f"7b {label}: {rec['plain']} calls of a plain version or sweep")
+        check(bool(torch.isfinite(out.t_cam_obj).all()), f"7b {label}: finite poses")
+        t_fit = out.t_cam_obj[:, :3, 3].cpu().numpy()
+        err0 = float(np.linalg.norm(p["T_init"][:, :3, 3] - p["T_gt"][:, :3, 3], axis=1).mean())
+        err = float(np.linalg.norm(t_fit - p["T_gt"][:, :3, 3], axis=1).mean())
+        check(err < err0, f"7b {label}: mean translation error {err} < {err0}")
+        inputs[label] = rec["inputs"]
+        rep[label] = {"objects": B, "launches": launches, "rows": rows,
+                      "launch_rows": {f"{op} {n}": k for (op, n), k in rec["launches"].items()},
+                      "good": int(out.is_good.sum()), "t_err_init_mean": err0, "t_err_mean": err}
+        print(f"phase 7b {label} fit at latent 256 (B={B}, {N} points, {R} rays, "
+              f"{recon['num_iterations']} iterations): launches {launches}, rows a launch "
+              f"{rep[label]['launch_rows']}; no plain version or sweep; {rep[label]['good']} of "
+              f"{B} good; mean t_err {err0:.4f} -> {err:.4f} m", flush=True)
+
+    # each kernel at each row count its fit launched, on that launch's inputs
+    timed = {}
+    for label, kind in (("b128 bf16", "value"), ("b128 bf16", "jacobian"),
+                        ("b8 f32", "value"), ("b8 f32", "jacobian")):
+        for (op, n), (code, xyz) in sorted(inputs[label].items(), key=lambda kv: -kv[0][1]):
+            if op != kind:
+                continue
+            if label == "b8 f32":
+                t = time_f32_inputs(mlp_sdf, dec, kind, code, xyz, mem_bw)
+            else:
+                codes = code.numel() // 256
+                flops, io = decoder_work.work(256, kind == "jacobian", n, 1, codes)
+                t = time_bf16_kernel(mlp_sdf, dec, kind, code, xyz, flops, io, peak_bf16, mem_bw)
+                t["codes"] = codes
+            timed.setdefault((label, kind), []).append(t)
+            print(f"phase 7b timing {label} {kind}: rows {n} kernel {t['ms']:.4f} ms "
+                  f"({t['tflops']:.1f} TFLOP/s" + (f", tiling {t['tiling']}" if "tiling" in t else "")
+                  + f"), plain {t['plain_ms']:.3f} ms, torch.matmul {t['library_ms']:.3f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), max_abs_err "
+                  f"{t['max_abs_err']:.3g} on {smi}", flush=True)
+    rep["timing"] = {f"{label} {kind}": ts for (label, kind), ts in timed.items()}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rows",
+            "dtype", "tiling")
+    kernels = []
+    for label, kind, name, src, replaces in (
+            ("b128 bf16", "value", "mlp_sdf256_value", "mlp_sdf256_value_tc.cu", ":237"),
+            ("b128 bf16", "jacobian", "mlp_sdf256_jacobian", "mlp_sdf256_jacobian_tc.cu", ":159"),
+            ("b8 f32", "value", "mlp_sdf256_value_f32", "mlp_sdf256_f32.cu", ":237"),
+            ("b8 f32", "jacobian", "mlp_sdf256_jacobian_f32", "mlp_sdf256_f32.cu", ":159")):
+        ts = timed[(label, kind)]
+        dtype = torch.bfloat16 if label == "b128 bf16" else torch.float32
+        entry = dict(name=name, route="cuda", source="dsp_slam_rgbd_tpu_torch/csrc/" + src,
+                     replaces="dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py" + replaces,
+                     launches=rep[label]["launches"][mlp_sdf.kernel_name("mlp_sdf_" + kind,
+                                                                         dtype)],
+                     **{k: v for k, v in ts[0].items() if k in keys})
+        if len(ts) > 1:      # the fit's smallest launch beside its largest
+            entry["small"] = {k: v for k, v in ts[-1].items() if k in keys}
+        kernels.append(entry)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 7b took {rep['phase_s']:.0f} s", flush=True)
+    return rep, kernels
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measured numbers to this JSON file")
@@ -3947,41 +4157,9 @@ def main(argv=None):
         code = torch.tensor(code_np, dtype=torch.float32, device=dev)
         xyz = torch.tensor(xyz_np, dtype=torch.float32, device=dev)
         jac = kind == "jacobian"
-        kern = (functools.partial(mlp_sdf.sdf_and_input_jacobian_fused,
-                                  tiles=fixture.jacobian_tiles) if jac else
-                functools.partial(mlp_sdf.sdf_value_fused, tiles=fixture.value_tiles))
-        plain = mlp_sdf.sdf_and_input_jacobian_plain if jac else mlp_sdf.sdf_value_plain
-        # held to the bf16 tolerances at the main path's shapes
-        if jac:
-            _, g_k, g_m, _ = hold_bf16_jacobian(mlp_sdf, wb, fixture.jacobian_tiles, code, xyz,
-                                                f"jacobian at {rows} rows")
-            err = float((g_k - g_m).abs().max())
-        else:
-            err = float((kern(wb, code, xyz, bf) - plain(wb, code, xyz, bf)).abs().max())
-            check(err <= BF16_SDF_ATOL, f"value at {rows} rows: sdf {err}")
-        rand = torch.Generator(device=dev).manual_seed(rows)
-        x = torch.randn(rows, 128, device=dev, dtype=bf, generator=rand)
-        h = torch.randn(rows, 512, device=dev, dtype=bf, generator=rand)
-
-        def library():       # the same products, one torch.matmul each
-            torch.matmul(x, w0)
-            for i in range(8):
-                torch.matmul(h, W[i])
-            if jac:
-                for i in range(8):
-                    torch.matmul(h, W[i].T)
-
-        ms = cuda_ms(lambda: kern(wb, code, xyz, bf), 20)
-        plain_ms = cuda_ms(lambda: plain(wb, code, xyz, bf), 5)
-        library_ms = cuda_ms(library, 20)
         flops = 2.0 * fwd_macs * rows * (2 if jac else 1)
         io = w_bytes + code.numel() * 4 + xyz.numel() * 4 + rows * 4 * (1 + (67 if jac else 0))
-        t_ops, t_bytes = flops / peak_bf16 * 1e3, io / mem_bw * 1e3
-        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "max_abs_err": err, "rows": rows, "dtype": "bf16",
-                "tflops": flops / ms / 1e9}
+        return time_bf16_kernel(mlp_sdf, fixture, kind, code, xyz, flops, io, peak_bf16, mem_bw)
 
     t_val = timing("value", B * N_RAYS * cfg.coarse_samples, B)
     t_jac = timing("jacobian", B * cfg.max_grad_points, B)
@@ -4018,6 +4196,8 @@ def main(argv=None):
           + ", ".join(f"{t['l2_bytes'] / 1e9:.3f} GB = {t['l2_tb_per_s']:.2f} TB/s, "
                       f"{t['us_per_stage']:.3f} us per stage at {t['rows']} rows"
                       for t in (t_jac, t_jac_sdf)), flush=True)
+    # ---- 7b. DeepSDF's ShapeNet layout (latent 256) on the main path
+    report["deepsdf256"], kernels_256 = deepsdf256_phase(dev, smi, peak_bf16, mem_bw)
     # ---- 8 / 9a. per-frame tracking and the keyframe stage at KITTI size
     report["tracking"] = tracking_phase(dev, smi)
     # ---- 9b / 9c. bundle adjustment at KITTI-00 scale, and card vs CPU
@@ -4066,6 +4246,8 @@ def main(argv=None):
     for k in kernels:
         k["launches_by_path"] = {path: n[k["name"]]
                                  for path, n in {**paths13, **paths14, **paths16}.items()}
+    # the 256 kernels run on phase 7b's paths alone
+    kernels += kernels_256
     if opts.report:
         os.makedirs(os.path.dirname(os.path.abspath(opts.report)), exist_ok=True)
         with open(opts.report, "w") as f:

@@ -11,7 +11,7 @@ of the object's member points they see minus the motion cost
 The 37 candidates are scored as one batched tensor expression (frustum
 visibility of the member points × their |SDF| error), and the errors come
 from one decoder query over the member points: on the card the f32 value
-kernel for the cars/chairs_64 layout.
+kernel for the kernels' layouts (latent 64 or 256).
 """
 from __future__ import annotations
 

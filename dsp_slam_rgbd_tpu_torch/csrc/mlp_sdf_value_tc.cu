@@ -1,60 +1,10 @@
-// Tensor-core value pass of the fused DeepSDF decoder, bf16, for Hopper
-// (sm_90a): the 9-layer cars_64 MLP forward over rows of [code 64 | xyz 3].
-//
-// Replaces, for bf16 operands, the Pallas TPU kernel
-// dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py::_make_value_kernel.  The f32
-// parity mode stays on the FMA kernel of mlp_sdf.cu: tensor cores have no
-// full-f32 product.
-//
-// What bounds it on this card: operations.  One row costs 3.67 MFLOP of
-// real work (3.80 as computed here, layer 0 padded to K = 128) against 12
-// input bytes; the weights (3.8 MB in bf16) are the only large operand and
-// stay L2-resident.  The products run on the tensor cores (wgmma), whose
-// bf16 rate (989 TFLOP/s dense) is the ceiling.  What holds this design
-// back is the weight stream: every block receives the whole stack through
-// a two-slot ring, so each stage waits for its copy (on an H100 80GB HBM3
-// at 700 W: 0.82 ms at 102,400 rows, 7.4 TB/s from L2, against a 0.38 ms
-// bound).
-//
-// Design (bring-up stage 3 of 3):
-//   * A block owns BM = 64 rows, one wgmma M, and has three warpgroups:
-//     two consumers and one producer.  setmaxnreg moves registers from the
-//     producer (40 a thread) to the consumers (232).
-//   * Consumer warpgroup j computes outputs 256j..256j+255 of every layer
-//     for all 64 rows with wgmma m64n256k16: a 64 x 256 f32 accumulator,
-//     128 registers a thread.
-//   * The activations stay in shared memory as bf16 for the whole sweep,
-//     K-major in the 128-byte swizzled layout that a wgmma A descriptor
-//     reads (8 atoms of 64 columns), and are updated in place: both
-//     consumers finish their K loop (wgmma.wait_group 0), meet at a named
-//     barrier, and only then write their columns back.
-//   * The weights are packed on the host (`pack_value_tiles`) into the
-//     exact shared-memory order the B descriptor reads: a sequence of
-//     stages, each one 64-deep K chunk of a layer for all 512 outputs,
-//     K-major and 128-byte swizzled, consumer j reading half j.  One
-//     producer thread streams the stages through a ring of NSLOT slots,
-//     one bulk asynchronous copy (cp.async.bulk, no tensor map) per stage,
-//     completed on the slot's "full" mbarrier; each consumer warp arrives
-//     on the slot's "empty" mbarrier once its wgmma reads are done.  The
-//     ring runs across layer boundaries, so the next layer's first
-//     weights arrive during this layer's epilogue.
-//   * The epilogue adds the bias, applies ReLU, rounds to bf16 (RNE) and
-//     writes the accumulator fragment into the swizzled layout; before
-//     layer 4, columns 445..511 (all in consumer 1's half) take the bf16
-//     input row (latent re-injection).  Layer 8 has one real output
-//     column (kept in shared memory as bf16): a per-row dot product in
-//     f32, then tanh.
-//   * The ring, both roles' set-up and the K loop are the Jacobian
-//     kernel's too (mlp_sdf_tc.cuh).
-//   * Codes are read per row as code[row / rows_per_code]; the last tile
-//     is masked.
-#include "mlp_sdf_tc.cuh"
+// The bf16 tensor-core value kernel (mlp_sdf_value_tc.cuh) for the
+// cars/chairs_64 layout: latent 64, the whole input row in the row tile.
+#include "mlp_sdf_value_tc.cuh"
 
 namespace {
 
-constexpr int STAGE = 3;                     // bring-up stage of this kernel
-constexpr size_t SMEM = 1024 /* alignment slack */ + XIN_BYTES + ACT_BYTES + RING_BYTES +
-                        D * 2 + BAR_BYTES;
+using L64 = Layout<64>;
 
 __global__ void __launch_bounds__(NT, 1)
     mlp_sdf_value_tc_kernel(const float* __restrict__ code, int rows_per_code,
@@ -62,46 +12,7 @@ __global__ void __launch_bounds__(NT, 1)
                             const uint8_t* __restrict__ tiles,
                             const __nv_bfloat16* __restrict__ W,
                             const float* __restrict__ bias, float* __restrict__ sdf) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* xin = smem_base(smem_raw);  // input rows (layer 0's A)
-  uint8_t* act = xin + XIN_BYTES;      // activations, updated in place
-  uint8_t* ring = act + ACT_BYTES;     // NSLOT weight stages
-  __nv_bfloat16* w8s = reinterpret_cast<__nv_bfloat16*>(ring + RING_BYTES);  // layer 8
-  const uint32_t full = smem_u32(w8s + D);  // the ring's mbarriers
-  const int t = threadIdx.x;
-  const int base = blockIdx.x * BM;
-  ring_init(full, t);
-
-  // warpgroup index, uniform across each warp, so that ptxas can apply
-  // setmaxnreg to each role's code
-  const int role = __shfl_sync(0xffffffffu, t / 128, 0);
-  if (role == NCONS / 128) {
-    produce(FWD_STAGES, [=](int s, uint32_t* bytes) {
-      *bytes = STAGE_BYTES;
-      return tiles + size_t(s) * STAGE_BYTES;
-    }, ring, full, t);
-    return;
-  }
-
-  // ---- two consumer warpgroups: warpgroup j computes outputs
-  // 256j..256j+255 of every layer for all 64 rows
-  consumer_start(xin, w8s, code, rows_per_code, xyz, n, base, W, t);
-  const int j = t / 128, tw = t % 128;
-  float d[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) d[i] = 0.f;
-  int s = 0;  // next stage of the ring
-  for (int layer = 0; layer < 8; ++layer) {
-    product(d, layer == 0 ? xin : act, layer == 0 ? K0 / KC : D / KC, ring, full,
-            j * HALF_BYTES, t, s);
-    if (layer == 3)
-      epilogue<true>(d, act, xin, bias + layer * D, j * NH, tw);
-    else
-      epilogue<false>(d, act, xin, bias + layer * D, j * NH, tw);
-    fence_proxy_async();
-    named_sync<NCONS>();
-  }
-  head(act, w8s, bias[8 * D], sdf, n, base, t);
+  value_body<L64>(code, rows_per_code, xyz, n, tiles, W, bias, nullptr, 0, sdf);
 }
 
 }  // namespace
@@ -112,6 +23,7 @@ __global__ void __launch_bounds__(NT, 1)
 // Returns the launch's cudaError_t.  n > 0.
 int mlp_sdf_value_tc(const void* code, int rows_per_code, const void* xyz, int n,
                      const void* tiles, const void* W, const void* b, void* sdf, void* stream) {
+  constexpr size_t SMEM = value_smem<L64>();
   cudaError_t err = cudaFuncSetAttribute(
       mlp_sdf_value_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
   if (err != cudaSuccess) return int(err);
@@ -122,17 +34,6 @@ int mlp_sdf_value_tc(const void* code, int rows_per_code, const void* xyz, int n
   return int(cudaGetLastError());
 }
 
-// Shared memory per block, threads per block, rows per block, bring-up
-// stage, registers per thread and local (spill) bytes of the kernel.
 extern "C" int mlp_sdf_value_tc_config(int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, mlp_sdf_value_tc_kernel);
-  if (err != cudaSuccess) return int(err);
-  out[0] = int(SMEM);
-  out[1] = NT;
-  out[2] = BM;
-  out[3] = STAGE;
-  out[4] = attr.numRegs;
-  out[5] = int(attr.localSizeBytes);
-  return 0;
+  return value_config<L64>(mlp_sdf_value_tc_kernel, out);
 }

@@ -12,7 +12,9 @@ Two ways to query the decoder:
     sweep for any architecture (the counterpart of the JAX package's XLA
     path);
   * `query` / `query_with_jacobian`: what the reconstruction uses.  For
-    the cars/chairs_64 layout they go through the fused kernels of
+    the kernels' layouts (`mlp_sdf.LAYOUTS`: the cars/chairs_64 layout,
+    latent 64, and DeepSDF's ShapeNet layout, latent 256, each 8x512 with
+    latent_in (4,)) they go through the fused kernels of
     `ops/cuda/mlp_sdf.py` (on a CPU tensor, their plain versions); any
     other architecture takes the plain sweep.  A dispatch on architecture.
 
@@ -70,8 +72,8 @@ def _rows(code: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
 class DeepSDFDecoder(nn.Module):
     """The DeepSDF MLP.  Buffers W{i} (in, out) and b{i} (out,).
 
-    For the cars/chairs_64 layout the fused kernels' packed weights are
-    built at construction and rebuilt on every `.to()`/`.cuda()`, in f32
+    For the kernels' layouts (latent 64 or 256, 8x512, latent_in (4,)) the
+    fused kernels' packed weights are built at construction and rebuilt on every `.to()`/`.cuda()`, in f32
     and as a bf16 copy (`packed`), with the kernels' weight streams beside
     them: in bf16 the forward's (`value_tiles`) and the Jacobian's backward
     sweep's (`backward_tiles`), which the Jacobian kernel reads both of
@@ -146,7 +148,8 @@ class DeepSDFDecoder(nn.Module):
         """Packed (w0, W, b) for the fused kernels, weights in compute_dtype."""
         if not self._packed:
             raise ValueError("the fused kernels do not take this decoder's "
-                             f"architecture ({self.spec})")
+                             f"architecture ({self.spec}); they take "
+                             f"{mlp_sdf.LAYOUT_NAMES}")
         return self._packed[compute_dtype]
 
     # -- the plain sweep (any architecture) ---------------------------------
@@ -209,16 +212,16 @@ class DeepSDFDecoder(nn.Module):
     # -- the route the reconstruction takes ---------------------------------
 
     def query(self, code, xyz, compute_dtype=torch.float32) -> torch.Tensor:
-        """SDF values: the fused value kernel for the cars/chairs_64 layout,
-        the plain sweep otherwise."""
+        """SDF values: the fused value kernel for the kernels' layouts
+        (latent 64 or 256), the plain sweep otherwise."""
         if self.fused:
             return mlp_sdf.sdf_value_fused(self.packed(compute_dtype), code,
                                            xyz, compute_dtype, self.tiles(compute_dtype))
         return self.sdf(code, xyz, compute_dtype)
 
     def query_with_jacobian(self, code, xyz, compute_dtype=torch.float32):
-        """(sdf, input Jacobian): the fused kernel for the cars/chairs_64
-        layout, the plain sweep otherwise."""
+        """(sdf, input Jacobian): the fused kernel for the kernels' layouts
+        (latent 64 or 256), the plain sweep otherwise."""
         if self.fused:
             return mlp_sdf.sdf_and_input_jacobian_fused(
                 self.packed(compute_dtype), code, xyz, compute_dtype,

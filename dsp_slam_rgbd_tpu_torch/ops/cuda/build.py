@@ -70,18 +70,16 @@ def _digest(srcs: list[str]) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mlp_sdf_value.argtypes = [p, i, p, i, p, p, p, i, p, p, p]
+    lib.mlp_sdf_value.argtypes = [i, p, i, p, i, p, p, p, i, p, p, p, p]
     lib.mlp_sdf_value.restype = i
-    lib.mlp_sdf_value_tc_config.argtypes = [ctypes.POINTER(i)]
-    lib.mlp_sdf_value_tc_config.restype = i
-    lib.mlp_sdf_jacobian.argtypes = [p, i, p, i, p, p, p, i, p, p, p, p, p, p]
+    lib.mlp_sdf_jacobian.argtypes = [i, p, i, p, i, p, p, p, i, p, p, p, p, p, p, p]
     lib.mlp_sdf_jacobian.restype = i
-    lib.mlp_sdf_jacobian_tc_config.argtypes = [ctypes.POINTER(i)]
-    lib.mlp_sdf_jacobian_tc_config.restype = i
-    lib.mlp_sdf_f32_config.argtypes = [ctypes.POINTER(i)]
-    lib.mlp_sdf_f32_config.restype = i
-    lib.mlp_sdf_f32_tiling.argtypes = [i, i]
-    lib.mlp_sdf_f32_tiling.restype = i
+    for pre in ("mlp_sdf", "mlp_sdf256"):
+        for name in ("_value_tc_config", "_jacobian_tc_config", "_f32_config"):
+            getattr(lib, pre + name).argtypes = [ctypes.POINTER(i)]
+            getattr(lib, pre + name).restype = i
+        getattr(lib, pre + "_f32_tiling").argtypes = [i, i]
+        getattr(lib, pre + "_f32_tiling").restype = i
     lib.mlp_sdf_f32_force_tiling.argtypes = [i]
     lib.mlp_sdf_f32_force_tiling.restype = i
     q = ctypes.c_int64

@@ -2,28 +2,36 @@
 
 Counterpart of `dsp_slam_rgbd_tpu/ops/pallas/mlp_sdf.py`.  The two Pallas
 TPU kernels (`_make_kernel`, `_make_value_kernel`) are CUDA C++ for
-sm_90a: in bf16 on the tensor cores (`csrc/mlp_sdf_value_tc.cu`,
-`csrc/mlp_sdf_jacobian_tc.cu`), in f32 (the mode `ReconConfig()` runs) on
-the FMA pipes in `csrc/mlp_sdf_f32.cu`, with the C routing in
-`csrc/mlp_sdf.cu`.  This module packs the weights, checks and flattens the
-inputs, launches the kernels, and keeps beside each one its plain PyTorch
-version (the CPU route and the reference the card is held to).
+sm_90a: in bf16 on the tensor cores (`csrc/mlp_sdf_value_tc.cuh`,
+`csrc/mlp_sdf_jacobian_tc.cuh`), in f32 (the mode `ReconConfig()` runs) on
+the FMA pipes (`csrc/mlp_sdf_f32.cuh`), with the C routing in
+`csrc/mlp_sdf.cu`.  They are compiled for two decoder layouts (`LAYOUTS`),
+each 8 hidden layers of 512 with the input re-injected at layer 4 and a
+final tanh: DSP-SLAM's cars/chairs_64 (latent 64; `csrc/mlp_sdf_*.cu`) and
+DeepSDF's published ShapeNet setting (latent 256; `csrc/mlp_sdf256_*.cu`).
+This module packs the weights, checks and flattens the inputs, launches the
+kernels, and keeps beside each one its plain PyTorch version (the CPU route
+and the reference the card is held to).
 
-Packed layout (as on the TPU): w0 (128, 512) for layer 0 over the input
-rows [code 64 | xyz 3 | 0]; W (8, 512, 512) for layers 1..8, layer 3's 445
-real output columns padded with zeros and layer 8's single output in
-column 0; b (9, 512).  Before layer 4 the raw 67-d input is written into
-columns 445..511 (the decoder's latent re-injection).
+Packed layout (as on the TPU): w0 (in_pad, 512) for layer 0 over the input
+rows [code L | xyz 3 | 0] (in_pad 128 at L = 64, 384 at 256); W (8, 512,
+512) for layers 1..8, layer 3's 512 − (L + 3) real output columns (445 or
+253) padded with zeros and layer 8's single output in column 0; b (9,
+512).  Before layer 4 the raw (L + 3)-d input is written into the columns
+past layer 3's real ones (the decoder's latent re-injection).
 
 Every kernel reads its weights as host-packed streams, the exact
 shared-memory image of each slot of its weight ring: in bf16 the forward
 sweep w0 and W[0..6] as `pack_value_tiles` lays them out, the Jacobian's
 backward sweep W[6]ᵀ..W[0]ᵀ and w0ᵀ as `pack_backward_tiles` does; in f32
 the same sweeps as `pack_value_tiles_f32` and `pack_backward_tiles_f32`
-lay them out.
+lay them out.  At latent 256 the bf16 kernels fold the code's products
+(`Layout.fold`): the forward stream's layer 0 covers xyz alone, and a fold
+kernel before each launch forms every code's product with layer 0's and
+layer 4's code rows, which the layers add as a per-code bias.
 
-Batching: code may be one shared (64,) code, per-row (N, 64) codes, or
-per-object (B, 64) codes over xyz (B, N, 3); every form is one launch over
+Batching: code may be one shared (L,) code, per-row (N, L) codes, or
+per-object (B, L) codes over xyz (B, N, 3); every form is one launch over
 all rows, with row g reading code[g // rows_per_code].
 
 Routing: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
@@ -32,35 +40,81 @@ the plain version.  Nothing falls back.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from dsp_slam_rgbd_tpu_torch.ops.cuda import build
 
 D = 512
-IN_DIM = 67     # 64 code + 3 xyz
-IN_PAD = 128    # packed input width of layer 0
-SPLIT = 445     # layer-3 real output width (D − IN_DIM)
 N_LAYERS = 9
-
-VALUE_KC = 64                                  # K rows of a layer per value-kernel stage
-VALUE_STAGES = (IN_PAD + (N_LAYERS - 2) * D) // VALUE_KC   # 58
+VALUE_KC = 64                                  # K rows of a layer per bf16 stage
 VALUE_STAGE_BYTES = VALUE_KC * D * 2           # one stage: 64 K x 512 outputs, bf16
 BACKWARD_STAGES = (N_LAYERS - 2) * D // VALUE_KC   # 56 stages of W[6]ᵀ..W[0]ᵀ
-W0T_STAGES = D // VALUE_KC                     # then 8 stages of w0ᵀ,
-W0T_STAGE_BYTES = VALUE_KC * IN_PAD * 2        # 64 K x 128 outputs each
-BACKWARD_BYTES = BACKWARD_STAGES * VALUE_STAGE_BYTES + W0T_STAGES * W0T_STAGE_BYTES
-
+W0T_STAGES = D // VALUE_KC                     # then 8 stages of w0ᵀ
 # The f32 streams: 128-column blocks, block-major over the whole stream, so
 # that a cluster CTA's column slice of any run of rows is one contiguous copy
 # per block; within a block, position 4 l + j holds column l + 32 j (lane l's
 # four columns, one float4).
-F32_K0 = 80                                    # layer-0 rows: 67 padded to a multiple of 16
-F32_BLOCK = 128                                # columns of a block
-F32_FWD_ROWS = F32_K0 + (N_LAYERS - 2) * D     # [w0[:80]; W[0]; ...; W[6]]: 3,664
-F32_BWD_ROWS = (N_LAYERS - 2) * D              # W[6]ᵀ..W[0]ᵀ: 3,584, then w0ᵀ (512 x 128)
-F32_VALUE_FLOATS = (D // F32_BLOCK) * F32_FWD_ROWS * F32_BLOCK
-F32_BACKWARD_FLOATS = (D // F32_BLOCK) * F32_BWD_ROWS * F32_BLOCK + D * IN_PAD
+F32_BLOCK = 128                                # columns of an f32 block
+F32_BWD_ROWS = (N_LAYERS - 2) * D              # W[6]ᵀ..W[0]ᵀ: 3,584, then w0ᵀ
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class Layout(NamedTuple):
+    """A decoder layout the kernels are compiled for (8 x 512, latent_in
+    (4,), final tanh) and the shapes of its packed weights and streams."""
+    latent: int
+    in_dim: int            # code + xyz
+    split: int             # layer-3 real output width (D − in_dim)
+    in_pad: int            # rows of the packed w0: whole 128-column blocks of w0ᵀ
+    fold: bool             # bf16: the code's layer-0 and layer-4 products per code
+    value_k0: int          # layer-0 rows of the bf16 forward stream
+    value_skip: tuple      # (first, count) of layer 4's K chunks the bf16 stream leaves out
+    w0t_cols: int          # outputs of the bf16 Jacobian's last product (g w0ᵀ)
+    f32_k0: int            # layer-0 rows of the f32 forward stream
+    value_stages: int
+    w0t_stage_bytes: int
+    backward_bytes: int
+    f32_value_floats: int
+    f32_backward_floats: int
+
+
+def _layout(latent: int) -> Layout:
+    in_dim = latent + 3
+    fold = _up(in_dim, VALUE_KC) > 2 * VALUE_KC    # the row tile would pass 16 KB
+    value_k0 = VALUE_KC if fold else _up(in_dim, VALUE_KC)
+    # folded, layer 4's input is 0 in the code's columns: the K chunks that
+    # hold nothing else are left out of the stream and the product
+    split = D - in_dim
+    skip_at = -(-split // VALUE_KC) if fold else 0
+    skip = (split + latent) // VALUE_KC - skip_at if fold else 0
+    w0t_cols = _up(in_dim, VALUE_KC)
+    in_pad = _up(in_dim, F32_BLOCK)
+    f32_k0 = _up(in_dim, 16)
+    w0t_stage = VALUE_KC * w0t_cols * 2
+    return Layout(latent, in_dim, split, in_pad, fold, value_k0, (skip_at, skip), w0t_cols,
+                  f32_k0, (value_k0 + (N_LAYERS - 2) * D) // VALUE_KC - skip, w0t_stage,
+                  BACKWARD_STAGES * VALUE_STAGE_BYTES + W0T_STAGES * w0t_stage,
+                  (D // F32_BLOCK) * (f32_k0 + (N_LAYERS - 2) * D) * F32_BLOCK,
+                  (D // F32_BLOCK) * F32_BWD_ROWS * F32_BLOCK + D * in_pad)
+
+
+# the compiled layouts: DSP-SLAM's cars/chairs_64 and DeepSDF's published
+# ShapeNet setting (`examples/chairs/specs.json`: CodeLength 256)
+LAYOUTS = {latent: _layout(latent) for latent in (64, 256)}
+LAYOUT_NAMES = ("the cars/chairs_64 layout (latent 64) or DeepSDF's ShapeNet layout "
+                "(latent 256), each with 8x512 dims and latent_in=(4,)")
+
+# the cars/chairs_64 layout's stream sizes
+VALUE_STAGES = LAYOUTS[64].value_stages        # 58
+W0T_STAGE_BYTES = LAYOUTS[64].w0t_stage_bytes  # 64 K x 128 outputs each
+BACKWARD_BYTES = LAYOUTS[64].backward_bytes
+F32_VALUE_FLOATS = LAYOUTS[64].f32_value_floats
+F32_BACKWARD_FLOATS = LAYOUTS[64].f32_backward_floats
 # the kernels' tilings, in the order of their C interface: (rows of a tile,
 # CTAs of a cluster sharing it, each computing 512 / c columns)
 F32_TILINGS = ((32, 1), (64, 2), (32, 2))
@@ -85,32 +139,40 @@ def reset_launch_counts() -> None:
 
 
 def compatible(spec) -> bool:
-    """True when the decoder arch matches the kernels' static layout
-    (cars/chairs_64: 64-d latent, 8x512 hidden, latent_in=(4,))."""
+    """True when the decoder arch is one of the kernels' compiled layouts
+    (`LAYOUTS`: latent 64 or 256, 8x512 hidden, latent_in=(4,))."""
     return (
-        getattr(spec, "latent_size", None) == 64
+        getattr(spec, "latent_size", None) in LAYOUTS
         and tuple(getattr(spec, "latent_in", ())) == (4,)
         and getattr(spec, "dims", None) is not None
         and tuple(spec.dims) == (512,) * 8
     )
 
 
+def layout_of(w0) -> Layout:
+    """The layout of packed weights, from w0's shape."""
+    for lay in LAYOUTS.values():
+        if tuple(w0.shape) == (lay.in_pad, D):
+            return lay
+    raise ValueError(f"packed w0 must be (128, 512) at latent 64 or (384, 512) at 256; "
+                     f"got {tuple(w0.shape)}")
+
+
 def pack_params(layers, spec):
-    """Pack [(W_i (in, out), b_i (out,))] into f32 (w0 (128, 512),
+    """Pack [(W_i (in, out), b_i (out,))] into f32 (w0 (in_pad, 512),
     W (8, 512, 512), b (9, 512)) on the layers' device.
 
-    Raises ValueError for a decoder whose arch does not fit the layout: it
-    would silently zero-pad into it and return wrong SDF values.
+    Raises ValueError for a decoder whose arch fits no compiled layout: it
+    would silently zero-pad into one and return wrong SDF values.
     """
     if not compatible(spec) or len(layers) != N_LAYERS:
         raise ValueError(
-            "the fused decoder kernels require the cars/chairs_64 layout "
-            "(latent 64, 8x512 dims, latent_in=(4,)); got "
+            f"the fused decoder kernels require {LAYOUT_NAMES}; got "
             f"latent={getattr(spec, 'latent_size', None)} "
             f"dims={getattr(spec, 'dims', None)} "
             f"latent_in={getattr(spec, 'latent_in', None)}")
     dev = layers[0][0].device
-    w0 = torch.zeros(IN_PAD, D, device=dev)
+    w0 = torch.zeros(LAYOUTS[spec.latent_size].in_pad, D, device=dev)
     W = torch.zeros(N_LAYERS - 1, D, D, device=dev)
     b = torch.zeros(N_LAYERS, D, device=dev)
     for i, (Wi, bi) in enumerate(layers):
@@ -148,37 +210,49 @@ def _check_bf16(w0, W, what):
 
 
 def pack_value_tiles(w0, W):
-    """bf16 w0 (128, 512) and W[0..6] -> the bf16 kernels' forward weight
-    stream, flat (VALUE_STAGES * VALUE_STAGE_BYTES / 2,).
+    """bf16 w0 (in_pad, 512) and W[0..6] -> the bf16 kernels' forward
+    weight stream, flat (value_stages * VALUE_STAGE_BYTES / 2,).
 
-    Stage s holds rows 64s..64s+63 of [w0; W[0]; ...; W[6]] (one K chunk of
+    Stage s holds rows 64s..64s+63 of [w0'; W[0]; ...; W[6]] (one K chunk of
     one layer), transposed so that each output n is a 128-byte row of its
-    64 K values (B K-major), in the 128-byte swizzle.  Each stage is one
-    contiguous copy into shared memory; outputs 0..255 and 256..511 are its
-    two 32 KB halves.
+    64 K values (B K-major), in the 128-byte swizzle.  w0' is w0[:128] at
+    latent 64 (the row tile [code | xyz | 0]); at 256 (folded) it is w0's
+    3 xyz rows padded to 64 (the row tile [xyz | 0]), and W[3] (layer 4)
+    leaves out its K chunks 4..6, rows of the code alone (`value_skip`).
+    Each stage is one contiguous copy into shared memory; outputs 0..255
+    and 256..511 are its two 32 KB halves.
     """
     _check_bf16(w0, W, "value")
-    rows = torch.cat([w0, W[:N_LAYERS - 2].reshape(-1, D)])    # (3712, 512) = (K, N)
-    return _swizzle128(rows.reshape(VALUE_STAGES, VALUE_KC, D).transpose(1, 2))
+    lay = layout_of(w0)
+    mats = list(W[:N_LAYERS - 2])
+    if lay.fold:
+        w0 = torch.cat([w0[lay.latent:lay.in_dim],
+                        w0.new_zeros(lay.value_k0 - 3, D)])
+        at, n = lay.value_skip
+        mats[3] = torch.cat([mats[3][:at * VALUE_KC], mats[3][(at + n) * VALUE_KC:]])
+    rows = torch.cat([w0[:lay.value_k0]] + mats)                # (K, N)
+    return _swizzle128(rows.reshape(lay.value_stages, VALUE_KC, D).transpose(1, 2))
 
 
 def pack_backward_tiles(w0, W):
-    """bf16 w0 (128, 512) and W[0..6] -> the bf16 Jacobian kernel's
-    backward weight stream, flat (BACKWARD_BYTES / 2,).
+    """bf16 w0 (in_pad, 512) and W[0..6] -> the bf16 Jacobian kernel's
+    backward weight stream, flat (backward_bytes / 2,).
 
     Step i of the backward sweep is g · W[i-1]ᵀ: the reduction runs over
     W[i-1]'s output index and its outputs are W[i-1]'s input rows, whose 64
     K values of one chunk are already contiguous.  So stage 8(6 - l) + c
     (l = 6..0, c = 0..7) holds, for each of the 512 outputs k, the 128-byte
     row W[l][k, 64c:64c+64], and stage 56 + c likewise w0[k, 64c:64c+64]
-    for the 128 outputs k of the last product (16 KB stages), all in the
-    128-byte swizzle of `pack_value_tiles`.
+    for the w0t_cols outputs k of the last product (128 at latent 64, 16 KB
+    stages; 320 at 256, 40 KB), all in the 128-byte swizzle of
+    `pack_value_tiles`.
     """
     _check_bf16(w0, W, "backward")
+    lay = layout_of(w0)
     nc = D // VALUE_KC
     mats = W[:N_LAYERS - 2].flip(0)                             # W[6], ..., W[0]
     t = mats.reshape(N_LAYERS - 2, D, nc, VALUE_KC).transpose(1, 2)  # (l, c, k, 64)
-    t0 = w0.reshape(IN_PAD, nc, VALUE_KC).transpose(0, 1)            # (c, k, 64)
+    t0 = w0[:lay.w0t_cols].reshape(lay.w0t_cols, nc, VALUE_KC).transpose(0, 1)  # (c, k, 64)
     return torch.cat([_swizzle128(t.reshape(BACKWARD_STAGES, D, VALUE_KC)), _swizzle128(t0)])
 
 
@@ -196,25 +270,26 @@ def _lane_order(t):
 
 
 def pack_value_tiles_f32(w0, W):
-    """f32 w0 (128, 512) and W[0..6] -> the f32 kernels' forward weight
-    stream, flat (F32_VALUE_FLOATS,): the rows of [w0[:80]; W[0]; ...; W[6]]
-    (K, one row per input of a layer) in 4 blocks of 128 output columns,
-    block b holding all 3,664 rows of columns 128b..128b+127 in lane order
-    (`_lane_order`).  Rows 67..79 of w0 are the packed zeros."""
+    """f32 w0 (in_pad, 512) and W[0..6] -> the f32 kernels' forward weight
+    stream, flat (f32_value_floats,): the rows of [w0[:f32_k0]; W[0]; ...;
+    W[6]] (K, one row per input of a layer) in 4 blocks of 128 output
+    columns, block b holding all rows of columns 128b..128b+127 in lane
+    order (`_lane_order`).  f32_k0 is the input row padded to 16 (80 at
+    latent 64, 272 at 256); w0's rows past the input are the packed zeros."""
     _check_f32(w0, W, "value")
-    rows = torch.cat([w0[:F32_K0], W[:N_LAYERS - 2].reshape(-1, D)])
+    rows = torch.cat([w0[:layout_of(w0).f32_k0], W[:N_LAYERS - 2].reshape(-1, D)])
     return _lane_order(rows).contiguous().reshape(-1)
 
 
 def pack_backward_tiles_f32(w0, W):
-    """f32 w0 (128, 512) and W[0..6] -> the f32 Jacobian kernel's backward
-    weight stream, flat (F32_BACKWARD_FLOATS,).
+    """f32 w0 (in_pad, 512) and W[0..6] -> the f32 Jacobian kernel's
+    backward weight stream, flat (f32_backward_floats,).
 
     Step i of the backward sweep is g · W[i-1]ᵀ, so its B operand is
     W[i-1]ᵀ: row k (W's output) holds W[i-1][:, k] over the outputs n (W's
     inputs).  The rows of W[6]ᵀ, ..., W[0]ᵀ (3,584) in 4 blocks of 128
     columns as `pack_value_tiles_f32` lays them out, then w0ᵀ (512 rows of
-    128 columns) as one block."""
+    in_pad columns) in in_pad / 128 blocks (1 at latent 64, 3 at 256)."""
     _check_f32(w0, W, "backward")
     mats = W[:N_LAYERS - 2].flip(0).transpose(1, 2).reshape(-1, D)
     return torch.cat([_lane_order(mats).contiguous().reshape(-1),
@@ -223,33 +298,35 @@ def pack_backward_tiles_f32(w0, W):
 
 # -- input handling -----------------------------------------------------------
 
-def _flatten(code: torch.Tensor, xyz: torch.Tensor):
-    """-> (codes (C, 64), rows_per_code, xyz rows (n, 3), leading shape)."""
+def _flatten(code: torch.Tensor, xyz: torch.Tensor, latent: int):
+    """-> (codes (C, latent), rows_per_code, xyz rows (n, 3), leading shape)."""
     lead = tuple(xyz.shape[:-1])
     if xyz.shape[-1] != 3 or xyz.dim() not in (2, 3):
         raise ValueError(f"xyz must be (N, 3) or (B, N, 3), got {tuple(xyz.shape)}")
     rows = xyz.reshape(-1, 3)
     n = rows.shape[0]
-    if code.shape[-1] != 64:
-        raise ValueError(f"code must have 64 columns, got {tuple(code.shape)}")
+    if code.shape[-1] != latent:
+        raise ValueError(f"code must have {latent} columns, got {tuple(code.shape)}")
     if code.dim() == 1:                                   # shared
-        return code.reshape(1, 64), max(n, 1), rows, lead
+        return code.reshape(1, latent), max(n, 1), rows, lead
     if tuple(code.shape[:-1]) == lead:                    # per row
-        return code.reshape(-1, 64), 1, rows, lead
+        return code.reshape(-1, latent), 1, rows, lead
     if xyz.dim() == 3 and code.dim() == 2 and code.shape[0] == lead[0]:
         return code, max(lead[1], 1), rows, lead          # per object
     raise ValueError(f"code {tuple(code.shape)} does not match xyz {tuple(xyz.shape)}")
 
 
-def _check(wb, compute_dtype, codes, rows):
+def _prepare(wb, compute_dtype, code, xyz):
+    """Checks the packed weights and the inputs -> (layout, codes (C, L),
+    rows_per_code, xyz rows (n, 3), leading shape)."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     w0, W, b = wb
-    if (tuple(w0.shape) != (IN_PAD, D) or tuple(W.shape) != (N_LAYERS - 1, D, D)
-            or tuple(b.shape) != (N_LAYERS, D)):
-        raise ValueError("packed weights must be w0 (128, 512), W (8, 512, 512), "
-                         f"b (9, 512); got {tuple(w0.shape)}, {tuple(W.shape)}, "
-                         f"{tuple(b.shape)}")
+    if tuple(W.shape) != (N_LAYERS - 1, D, D) or tuple(b.shape) != (N_LAYERS, D):
+        raise ValueError("packed weights must be W (8, 512, 512), b (9, 512); got "
+                         f"{tuple(W.shape)}, {tuple(b.shape)}")
+    lay = layout_of(w0)
+    codes, rpc, rows, lead = _flatten(code, xyz, lay.latent)
     if w0.dtype != compute_dtype or W.dtype != compute_dtype or b.dtype != torch.float32:
         raise ValueError(f"weights must be {compute_dtype} with an f32 bias; got "
                          f"{w0.dtype}, {W.dtype}, {b.dtype}")
@@ -261,6 +338,7 @@ def _check(wb, compute_dtype, codes, rows):
         raise ValueError("weights, code and xyz must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("weights, code and xyz must be contiguous")
+    return lay, codes, rpc, rows, lead
 
 
 def _check_stream(t, n: int, name: str, dev, dtype=torch.bfloat16) -> None:
@@ -272,23 +350,24 @@ def _check_stream(t, n: int, name: str, dev, dtype=torch.bfloat16) -> None:
                                               f"{t.dtype} {tuple(t.shape)} on {t.device}"))
 
 
-def _check_tiles(tiles, dev, compute_dtype=torch.bfloat16) -> None:
+def _check_tiles(tiles, dev, compute_dtype, lay) -> None:
     if compute_dtype == torch.bfloat16:
-        _check_stream(tiles, VALUE_STAGES * VALUE_STAGE_BYTES // 2, "pack_value_tiles", dev)
+        _check_stream(tiles, lay.value_stages * VALUE_STAGE_BYTES // 2, "pack_value_tiles",
+                      dev)
     else:
-        _check_stream(tiles, F32_VALUE_FLOATS, "pack_value_tiles_f32", dev, torch.float32)
+        _check_stream(tiles, lay.f32_value_floats, "pack_value_tiles_f32", dev, torch.float32)
 
 
-def _check_jacobian_tiles(tiles, dev, compute_dtype=torch.bfloat16) -> None:
+def _check_jacobian_tiles(tiles, dev, compute_dtype, lay) -> None:
     sfx = "" if compute_dtype == torch.bfloat16 else "_f32"
     if not isinstance(tiles, (tuple, list)) or len(tiles) != 2:
         raise ValueError(f"the Jacobian kernel needs tiles = (pack_value_tiles{sfx}(w0, W), "
                          f"pack_backward_tiles{sfx}(w0, W)); got {type(tiles).__name__}")
-    _check_tiles(tiles[0], dev, compute_dtype)
+    _check_tiles(tiles[0], dev, compute_dtype, lay)
     if compute_dtype == torch.bfloat16:
-        _check_stream(tiles[1], BACKWARD_BYTES // 2, "pack_backward_tiles", dev)
+        _check_stream(tiles[1], lay.backward_bytes // 2, "pack_backward_tiles", dev)
     else:
-        _check_stream(tiles[1], F32_BACKWARD_FLOATS, "pack_backward_tiles_f32", dev,
+        _check_stream(tiles[1], lay.f32_backward_floats, "pack_backward_tiles_f32", dev,
                       torch.float32)
 
 
@@ -303,45 +382,55 @@ def _kernel_config(fn: str) -> dict:
     return dict(zip(_CONFIG_KEYS, out))
 
 
-def value_kernel_config() -> dict:
+def _prefix(latent: int) -> str:
+    """The C names' prefix of a layout's kernels: mlp_sdf, mlp_sdf256."""
+    if latent not in LAYOUTS:
+        raise ValueError(f"no kernels for latent {latent}: {LAYOUT_NAMES}")
+    return "mlp_sdf" if latent == 64 else f"mlp_sdf{latent}"
+
+
+def value_kernel_config(latent: int = 64) -> dict:
     """The bf16 value kernel's launch figures, read from the built library."""
-    return _kernel_config("mlp_sdf_value_tc_config")
+    return _kernel_config(f"{_prefix(latent)}_value_tc_config")
 
 
-def jacobian_kernel_config() -> dict:
+def jacobian_kernel_config(latent: int = 64) -> dict:
     """The bf16 Jacobian kernel's launch figures, read from the built library."""
-    return _kernel_config("mlp_sdf_jacobian_tc_config")
+    return _kernel_config(f"{_prefix(latent)}_jacobian_tc_config")
 
 
 _F32_CONFIG_KEYS = ("smem_bytes", "threads", "rows_per_tile", "cluster", "registers",
                     "local_bytes", "ring_slots", "slot_bytes", "clusters_resident")
 
 
-def f32_kernel_config() -> dict:
+def f32_kernel_config(latent: int = 64) -> dict:
     """The f32 kernels' launch figures for each tiling, read from the built
     library: {"value" | "jacobian": [{...} in F32_TILINGS' order]}."""
     lib = build.load()
     n, nt = len(_F32_CONFIG_KEYS), len(F32_TILINGS)
     out = (ctypes.c_int * (2 * nt * n))()
-    _raise_on(lib, lib.mlp_sdf_f32_config(out), "mlp_sdf_f32_config")
+    fn = f"{_prefix(latent)}_f32_config"
+    _raise_on(lib, getattr(lib, fn)(out), fn)
     vals = list(out)
     return {kind: [dict(zip(_F32_CONFIG_KEYS, vals[(nt * i + j) * n:(nt * i + j + 1) * n]))
                    for j in range(nt)]
             for i, kind in enumerate(("value", "jacobian"))}
 
 
-def f32_tiling(kind: str, n: int) -> tuple:
+def f32_tiling(kind: str, n: int, latent: int = 64) -> tuple:
     """The tiling (rows of a tile, CTAs of a cluster) the f32 launcher
     takes for n rows of `kind` ("value" or "jacobian")."""
     lib = build.load()
-    i = lib.mlp_sdf_f32_tiling(int(kind == "jacobian"), n)
+    fn = f"{_prefix(latent)}_f32_tiling"
+    i = getattr(lib, fn)(int(kind == "jacobian"), n)
     if i < 0:
-        _raise_on(lib, -i, "mlp_sdf_f32_tiling")
+        _raise_on(lib, -i, fn)
     return F32_TILINGS[i]
 
 
 def force_f32_tiling(tiling) -> tuple | None:
-    """Makes every later f32 launch take `tiling` (one of F32_TILINGS; None
+    """Makes every later f32 launch, of either layout, take `tiling` (one of
+    F32_TILINGS; None
     lets the launcher pick by row count again), for timing each choice.
     Returns the previous setting."""
     if tiling is not None and tuple(tiling) not in F32_TILINGS:
@@ -363,12 +452,12 @@ def _raise_on(lib, err: int, name: str) -> None:
 
 # -- plain PyTorch versions ---------------------------------------------------
 
-def _rows_in(codes, rpc, rows):
-    """Packed (n, 128) input rows [code | xyz | 0]."""
+def _rows_in(codes, rpc, rows, lay):
+    """Packed (n, in_pad) input rows [code | xyz | 0]."""
     n = rows.shape[0]
     per_row = codes.repeat_interleave(rpc, dim=0)[:n] if codes.shape[0] > 1 \
-        else codes.expand(n, 64)
-    pad = torch.zeros(n, IN_PAD - IN_DIM, dtype=rows.dtype, device=rows.device)
+        else codes.expand(n, lay.latent)
+    pad = torch.zeros(n, lay.in_pad - lay.in_dim, dtype=rows.dtype, device=rows.device)
     return torch.cat([per_row, rows, pad], dim=1)
 
 
@@ -380,7 +469,7 @@ def rounder(compute_dtype):
 
 
 def _plain_forward(wb, x, compute_dtype, keep_pre: bool, matmul=torch.matmul):
-    """Forward sweep over packed rows x (n, 128) -> (pre-tanh (n,), the 8
+    """Forward sweep over packed rows x (n, in_pad) -> (pre-tanh (n,), the 8
     ReLU layers' pre-activations if keep_pre).
 
     bf16 mode rounds every operand to bf16 before the product and
@@ -389,6 +478,7 @@ def _plain_forward(wb, x, compute_dtype, keep_pre: bool, matmul=torch.matmul):
     `sdf_and_input_jacobian_plain`).
     """
     rnd = rounder(compute_dtype)
+    lay = layout_of(wb[0])
     w0, W, b = (w.float() for w in wb)
     pres = []
     h = x
@@ -397,8 +487,8 @@ def _plain_forward(wb, x, compute_dtype, keep_pre: bool, matmul=torch.matmul):
             pre = matmul(rnd(x), w0) + b[0]
         else:
             if i == 4:
-                # latent re-injection: cols 445..511 <- raw input's 67 dims
-                h = torch.cat([h[:, :SPLIT], x[:, :IN_DIM]], dim=1)
+                # latent re-injection: cols split..511 <- the raw input row
+                h = torch.cat([h[:, :lay.split], x[:, :lay.in_dim]], dim=1)
             pre = matmul(rnd(h), W[i - 1]) + b[i]
         h = torch.relu(pre)
         if keep_pre:
@@ -409,11 +499,10 @@ def _plain_forward(wb, x, compute_dtype, keep_pre: bool, matmul=torch.matmul):
 
 def relu_preactivations(wb, code, xyz, compute_dtype=torch.float32, matmul=torch.matmul):
     """The plain version's pre-activations of the 8 ReLU layers, (…, 8, 512)
-    with xyz's leading shape; layer 3's padded columns 445..511 are 0.
+    with xyz's leading shape; layer 3's padded columns (split..511) are 0.
     matmul as for `sdf_and_input_jacobian_plain`."""
-    codes, rpc, rows, lead = _flatten(code, xyz)
-    _check(wb, compute_dtype, codes, rows)
-    _, pres = _plain_forward(wb, _rows_in(codes, rpc, rows), compute_dtype, True, matmul)
+    lay, codes, rpc, rows, lead = _prepare(wb, compute_dtype, code, xyz)
+    _, pres = _plain_forward(wb, _rows_in(codes, rpc, rows, lay), compute_dtype, True, matmul)
     return torch.stack(pres, dim=1).reshape(lead + (N_LAYERS - 1, D))
 
 
@@ -424,15 +513,14 @@ def relu_margin(wb, code, xyz, compute_dtype=torch.float32):
     mask, and with it on that row's Jacobian: comparisons leave such rows
     out."""
     pre = relu_preactivations(wb, code, xyz, compute_dtype).abs()
-    pre[..., 3, SPLIT:] = float("inf")
+    pre[..., 3, layout_of(wb[0]).split:] = float("inf")
     return pre.amin(dim=(-2, -1))
 
 
 def sdf_value_plain(wb, code, xyz, compute_dtype=torch.float32):
     """Plain version of `sdf_value_fused` (same inputs, same outputs)."""
-    codes, rpc, rows, lead = _flatten(code, xyz)
-    _check(wb, compute_dtype, codes, rows)
-    pre, _ = _plain_forward(wb, _rows_in(codes, rpc, rows), compute_dtype, False)
+    lay, codes, rpc, rows, lead = _prepare(wb, compute_dtype, code, xyz)
+    pre, _ = _plain_forward(wb, _rows_in(codes, rpc, rows, lay), compute_dtype, False)
     return torch.tanh(pre).reshape(lead)
 
 
@@ -449,10 +537,9 @@ def sdf_and_input_jacobian_plain(wb, code, xyz, compute_dtype=torch.float32, mas
     product, (a, b) -> a @ b in f32; a check passes another summation
     order (f64 sums rounded once, or a model of the tensor cores') to see
     what the order alone does."""
-    codes, rpc, rows, lead = _flatten(code, xyz)
-    _check(wb, compute_dtype, codes, rows)
+    lay, codes, rpc, rows, lead = _prepare(wb, compute_dtype, code, xyz)
     rnd = rounder(compute_dtype)
-    x = _rows_in(codes, rpc, rows)
+    x = _rows_in(codes, rpc, rows, lay)
     pre, pres = _plain_forward(wb, x, compute_dtype, True, matmul)
     if masks is None:
         masks = [p > 0.0 for p in pres]
@@ -465,30 +552,41 @@ def sdf_and_input_jacobian_plain(wb, code, xyz, compute_dtype=torch.float32, mas
     for i in range(N_LAYERS - 2, 0, -1):
         g = matmul(rnd(g * masks[i]), W[i - 1].T)
         if i == 4:
-            # columns >= SPLIT of layer 4's input belong to the raw input
-            extra = g[:, SPLIT:]
-            g = torch.cat([g[:, :SPLIT], torch.zeros_like(extra)], dim=1)
+            # columns >= split of layer 4's input belong to the raw input
+            extra = g[:, lay.split:]
+            g = torch.cat([g[:, :lay.split], torch.zeros_like(extra)], dim=1)
     grad = matmul(rnd(g * masks[0]), w0.T)
-    grad = grad[:, :IN_DIM] + extra
-    return sdf.reshape(lead), grad.reshape(lead + (IN_DIM,))
+    grad = grad[:, :lay.in_dim] + extra
+    return sdf.reshape(lead), grad.reshape(lead + (lay.in_dim,))
 
 
 # -- kernel wrappers ----------------------------------------------------------
 
+def _fold_scratch(lay, compute_dtype, n, rpc, dev):
+    """The fold kernel's (2, codes, 512) f32 output where the layout folds
+    in bf16, else None."""
+    if not (lay.fold and compute_dtype == torch.bfloat16):
+        return None
+    return torch.empty(2, (n + rpc - 1) // rpc, D, dtype=torch.float32, device=dev)
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def sdf_value_fused(wb, code, xyz, compute_dtype=torch.float32, tiles=None):
     """Value-only query -> sdf with xyz's leading shape.
 
-    wb: packed (w0, W, b) with w0 and W in compute_dtype (bf16 or f32),
-    b f32.  tiles: the weight stream the kernel reads, `pack_value_tiles(w0,
-    W)` in bf16 and `pack_value_tiles_f32(w0, W)` in f32 (built once per
-    decoder, see `DeepSDFDecoder.tiles`); required on the card, unused by
-    the plain version.
+    wb: packed (w0, W, b) of a compiled layout with w0 and W in
+    compute_dtype (bf16 or f32), b f32.  tiles: the weight stream the kernel
+    reads, `pack_value_tiles(w0, W)` in bf16 and `pack_value_tiles_f32(w0,
+    W)` in f32 (built once per decoder, see `DeepSDFDecoder.tiles`);
+    required on the card, unused by the plain version.
     """
-    codes, rpc, rows, lead = _flatten(code, xyz)
-    _check(wb, compute_dtype, codes, rows)
+    lay, codes, rpc, rows, lead = _prepare(wb, compute_dtype, code, xyz)
     bf16 = compute_dtype == torch.bfloat16
     if tiles is not None or rows.device.type != "cpu":
-        _check_tiles(tiles, rows.device, compute_dtype)
+        _check_tiles(tiles, rows.device, compute_dtype, lay)
     if rows.device.type == "cpu":
         return sdf_value_plain(wb, code, xyz, compute_dtype)
     lib = build.load()
@@ -496,9 +594,10 @@ def sdf_value_fused(wb, code, xyz, compute_dtype=torch.float32, tiles=None):
     sdf = torch.empty(n, dtype=torch.float32, device=rows.device)
     if n:
         w0, W, b = wb
-        err = lib.mlp_sdf_value(codes.data_ptr(), rpc, rows.data_ptr(), n, w0.data_ptr(),
-                                W.data_ptr(), b.data_ptr(), int(bf16), tiles.data_ptr(),
-                                sdf.data_ptr(), _stream())
+        fold = _fold_scratch(lay, compute_dtype, n, rpc, rows.device)
+        err = lib.mlp_sdf_value(lay.latent, codes.data_ptr(), rpc, rows.data_ptr(), n,
+                                w0.data_ptr(), W.data_ptr(), b.data_ptr(), int(bf16),
+                                tiles.data_ptr(), _ptr(fold), sdf.data_ptr(), _stream())
         _raise_on(lib, err, "mlp_sdf_value")
         LAUNCHES[kernel_name("mlp_sdf_value", compute_dtype)] += 1
         ROWS[kernel_name("mlp_sdf_value", compute_dtype)] += n
@@ -507,7 +606,7 @@ def sdf_value_fused(wb, code, xyz, compute_dtype=torch.float32, tiles=None):
 
 def sdf_and_input_jacobian_fused(wb, code, xyz, compute_dtype=torch.float32, tiles=None,
                                  masks_out=None):
-    """Fused query -> (sdf, d sdf / d[code, xyz] (…, 67)) with xyz's
+    """Fused query -> (sdf, d sdf / d[code, xyz] (…, L + 3)) with xyz's
     leading shape.  wb as for `sdf_value_fused`.  tiles: the pair of
     streams the kernel reads its forward and backward weights from,
     (`pack_value_tiles(w0, W)`, `pack_backward_tiles(w0, W)`) in bf16 and
@@ -517,11 +616,10 @@ def sdf_and_input_jacobian_fused(wb, code, xyz, compute_dtype=torch.float32, til
     (…, 8, 512) on the card that the bf16 kernel fills with the ReLU masks
     it took (1 where the pre-activation is > 0), for checking it against
     `sdf_and_input_jacobian_plain(..., masks=)`."""
-    codes, rpc, rows, lead = _flatten(code, xyz)
-    _check(wb, compute_dtype, codes, rows)
+    lay, codes, rpc, rows, lead = _prepare(wb, compute_dtype, code, xyz)
     bf16 = compute_dtype == torch.bfloat16
     if tiles is not None or rows.device.type != "cpu":
-        _check_jacobian_tiles(tiles, rows.device, compute_dtype)
+        _check_jacobian_tiles(tiles, rows.device, compute_dtype, lay)
     if masks_out is not None and (
             not bf16 or rows.device.type == "cpu" or masks_out.dtype != torch.uint8
             or tuple(masks_out.shape) != lead + (N_LAYERS - 1, D)
@@ -533,16 +631,16 @@ def sdf_and_input_jacobian_fused(wb, code, xyz, compute_dtype=torch.float32, til
     lib = build.load()
     n = rows.shape[0]
     sdf = torch.empty(n, dtype=torch.float32, device=rows.device)
-    grad = torch.empty(n, IN_DIM, dtype=torch.float32, device=rows.device)
+    grad = torch.empty(n, lay.in_dim, dtype=torch.float32, device=rows.device)
     if n:
         w0, W, b = wb
         fwd, bwd = (t.data_ptr() for t in tiles)
-        err = lib.mlp_sdf_jacobian(codes.data_ptr(), rpc, rows.data_ptr(), n, w0.data_ptr(),
-                                   W.data_ptr(), b.data_ptr(), int(bf16), fwd, bwd,
-                                   sdf.data_ptr(), grad.data_ptr(),
-                                   None if masks_out is None else masks_out.data_ptr(),
-                                   _stream())
+        fold = _fold_scratch(lay, compute_dtype, n, rpc, rows.device)
+        err = lib.mlp_sdf_jacobian(lay.latent, codes.data_ptr(), rpc, rows.data_ptr(), n,
+                                   w0.data_ptr(), W.data_ptr(), b.data_ptr(), int(bf16), fwd,
+                                   bwd, _ptr(fold), sdf.data_ptr(), grad.data_ptr(),
+                                   _ptr(masks_out), _stream())
         _raise_on(lib, err, "mlp_sdf_jacobian")
         LAUNCHES[kernel_name("mlp_sdf_jacobian", compute_dtype)] += 1
         ROWS[kernel_name("mlp_sdf_jacobian", compute_dtype)] += n
-    return sdf.reshape(lead), grad.reshape(lead + (IN_DIM,))
+    return sdf.reshape(lead), grad.reshape(lead + (lay.in_dim,))

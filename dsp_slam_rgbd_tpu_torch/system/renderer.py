@@ -6,7 +6,7 @@ by `ObjectDrawer.cc:53-132`): instead of rasterizing a mesh, every pixel
 ray is sampled along its chord through the object's unit sphere
 (`recon/losses.chord_sample_depths`), the decoder's SDF is evaluated at
 the samples (`DeepSDFDecoder.query`: on the card the f32 value kernel for
-the cars/chairs_64 layout), and the render loss's termination-probability
+the kernels' layouts, latent 64 or 256), and the render loss's termination-probability
 model turns it into an expected depth and a hit mask.  Host code only
 composites objects.
 """

@@ -1,16 +1,24 @@
-"""Train a cars_64-architecture DeepSDF decoder on an analytic shape family,
-as a deterministic test and bench fixture.
+"""Train a DeepSDF decoder (8×512, latent re-injected at layer 4) on an
+analytic shape family, as a deterministic test and bench fixture.
 
-Counterpart of `tools/train_fixture_decoder.py`.  The reference ships
-trained DeepSDF weights (`deep_sdf/workspace.py`); none exist here, and
-fits on random weights diverge chaotically.  This trains the full 8×512
-latent-64 decoder to represent ellipsoids whose axes come from the first
-three code dims:
+Counterpart of `tools/train_fixture_decoder.py`, which trains the
+cars_64 layout only.  The reference ships trained DeepSDF weights
+(`deep_sdf/workspace.py`); none exist here, and fits on random weights
+diverge chaotically.  This trains the full decoder at a latent size of 64
+(DSP-SLAM's cars, `ellipsoid_decoder_64.npz`) or 256 (DeepSDF's published
+ShapeNet setting, `ellipsoid_decoder_256.npz`) to represent ellipsoids
+whose axes come from the first three code dims:
 
     axes a_i = 0.30 + 0.12 * tanh(c_i),  i = 0..2      (c ~ N(0, 1))
     sdf(p; a) ~= k0 * (k0 - 1) / k1      (k0 = |p / a|, k1 = |p / a^2|)
 
-with the clamped L1 loss of DeepSDF (±0.1) and Adam (lr 5e-4, betas
+With `--code-ramp` each code's dims past the first three are scaled by a
+factor drawn per code in [0, 1), so that the decoder also learns codes
+near 0 there: a fit starts from the zero code, and its prior holds it
+near there.  Trained at 256 without it, the decoder reads a constant
+~0.096 at every code whose other dims are small, the fits' codes.  The
+64 fixture was trained without it.  Training uses
+the clamped L1 loss of DeepSDF (±0.1) and Adam (lr 5e-4, betas
 (0.9, 0.999), eps 1e-8 outside the square root, as optax's).  The forward
 is the plain layer-by-layer sweep under autograd on leaf weight tensors
 (no decoder kernel has a weight gradient), in f32 without TF32.  Each step
@@ -20,7 +28,8 @@ once at the end, in `deepsdf.save_npz`'s layout with the weights in f16.
 
 Usage:
   python -m dsp_slam_rgbd_tpu_torch.tools.train_fixture_decoder \
-      [--steps 4000] [--out tests/fixtures/ellipsoid_decoder_64.npz] \
+      [--steps 4000] [--latent-size 64|256] [--code-ramp] \
+      [--out tests/fixtures/ellipsoid_decoder_<latent>.npz] \
       [--dims 512 ... --latent-in 4] [--device cuda|cpu]
 """
 from __future__ import annotations
@@ -34,6 +43,11 @@ import torch
 from dsp_slam_rgbd_tpu_torch.tools.ellipsoid import FIXTURE
 
 CLAMP = 0.1
+
+
+def fixture_path(latent: int) -> str:
+    """The fixture of a latent size: `ellipsoid_decoder_<latent>.npz`."""
+    return os.path.join(os.path.dirname(FIXTURE), f"ellipsoid_decoder_{latent}.npz")
 
 
 def ellipsoid_sdf(p: torch.Tensor, axes: torch.Tensor) -> torch.Tensor:
@@ -84,11 +98,15 @@ def loss_fn(layers, spec, codes: torch.Tensor, pts: torch.Tensor) -> torch.Tenso
     return torch.mean(torch.abs(pred - target))
 
 
-def draw_batch(gen: torch.Generator, batch_codes: int, pts_per_code: int, latent: int):
+def draw_batch(gen: torch.Generator, batch_codes: int, pts_per_code: int, latent: int,
+               code_ramp: bool = False):
     """(codes (B, L), pts (B, P, 3)) on the CPU: half uniform volume
     samples in [-1.1, 1.1]³, half near the surface (unit directions scaled
-    to the ellipsoid, with 8% radial noise)."""
+    to the ellipsoid, with 8% radial noise).  code_ramp: each code's dims
+    past the first three scaled by a factor drawn per code in [0, 1)."""
     codes = torch.randn(batch_codes, latent, generator=gen)
+    if code_ramp:
+        codes[:, 3:] *= torch.rand(batch_codes, 1, generator=gen)
     half = pts_per_code // 2
     pts_u = torch.rand(batch_codes, half, 3, generator=gen) * 2.2 - 1.1
     dirs = torch.randn(batch_codes, half, 3, generator=gen)
@@ -132,28 +150,35 @@ def main(argv=None) -> dict:
     ap.add_argument("--pts-per-code", type=int, default=512)
     ap.add_argument("--lr", type=float, default=5e-4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--latent-size", type=int, default=DecoderSpec().latent_size)
+    ap.add_argument("--code-ramp", action="store_true",
+                    help="scale each code's dims past the first three by a factor in [0, 1)")
     ap.add_argument("--dims", type=int, nargs="+", default=list(DecoderSpec().dims))
     ap.add_argument("--latent-in", type=int, nargs="*", default=list(DecoderSpec().latent_in))
-    ap.add_argument("--out", default=FIXTURE)
+    ap.add_argument("--out", default=None,
+                    help="default: tests/fixtures/ellipsoid_decoder_<latent>.npz")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     from dsp_slam_rgbd_tpu_torch import device as device_mod
 
     dev = device_mod.resolve(args.device)
-    spec = DecoderSpec(dims=tuple(args.dims), latent_in=tuple(args.latent_in))
+    spec = DecoderSpec(latent_size=args.latent_size, dims=tuple(args.dims),
+                       latent_in=tuple(args.latent_in))
+    out = args.out or fixture_path(spec.latent_size)
     layers = init_layers(spec, args.seed, dev)
     opt = make_optimizer(layers, args.lr)
     gen = torch.Generator().manual_seed(args.seed + 1)
     losses = []
     for i in range(args.steps):
-        codes, pts = draw_batch(gen, args.batch_codes, args.pts_per_code, spec.latent_size)
+        codes, pts = draw_batch(gen, args.batch_codes, args.pts_per_code, spec.latent_size,
+                                args.code_ramp)
         losses.append(step(layers, spec, opt, codes.to(dev), pts.to(dev)))
         if i % 500 == 0 or i == args.steps - 1:
             print(f"step {i}: loss {float(losses[-1]):.5f}", flush=True)
-    save(args.out, layers, spec)
-    print("saved", os.path.abspath(args.out))
-    return {"losses": torch.stack(losses).cpu().numpy(), "out": args.out}
+    save(out, layers, spec)
+    print("saved", os.path.abspath(out))
+    return {"losses": torch.stack(losses).cpu().numpy(), "out": out}
 
 
 if __name__ == "__main__":

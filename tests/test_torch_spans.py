@@ -5,8 +5,10 @@ readers of them (`benchmark/metrics/`).
   * off (no profiler, no `recording()`), `span` is the shared no-op and a
     fit records nothing and never enters `record_function`;
   * under a CPU `torch.profiler` session a fit's chrome trace holds one
-    `recon.fit` and one `recon.gn` a GN iteration as `user_annotation`
-    events, nested as the registry's parent and root ids say;
+    `recon.fit` and one `recon.gn` a GN iteration, with one `recon.normal`
+    (the normal equations and their solve) inside each, as
+    `user_annotation` events, nested as the registry's parent and root ids
+    say;
   * `jac_slots` is B x K and `jac_live` the live-row count the normal
     equations summed;
   * a global BA records one `ba.global`, and on the PCG path one `ba.cg`
@@ -108,15 +110,24 @@ def test_fit_spans_nest_in_a_cpu_profiler_trace(decoder, tmp_path):
     ann = [e for e in events if e.get("cat") == "user_annotation"]
     fits = [e for e in ann if e["name"] == "recon.fit"]
     gns = [e for e in ann if e["name"] == "recon.gn"]
-    assert len(fits) == 1 and len(gns) == CFG.num_iterations
+    normals = [e for e in ann if e["name"] == "recon.normal"]
+    assert len(fits) == 1 and len(gns) == len(normals) == CFG.num_iterations
     f0, f1 = fits[0]["ts"], fits[0]["ts"] + fits[0]["dur"]
     assert all(f0 <= e["ts"] and e["ts"] + e["dur"] <= f1 for e in gns)
+    assert all(g["ts"] <= e["ts"] and e["ts"] + e["dur"] <= g["ts"] + g["dur"]
+               for g, e in zip(gns, normals))
 
     sp = timers.spans()
-    assert [s.name for s in sp] == ["recon.fit"] + ["recon.gn"] * CFG.num_iterations
-    fit, gn = sp[0], sp[1:]
+    assert [s.name for s in sp] == \
+        ["recon.fit"] + ["recon.gn", "recon.normal"] * CFG.num_iterations
+    fit, gn, normal = sp[0], sp[1::2], sp[2::2]
     assert fit.parent is None and fit.root == fit.id and fit.attrs["B"] == B
+    assert fit.attrs["latent"] == CFG.code_len
     assert all(s.parent == fit.id and s.root == fit.id for s in gn)
+    assert all(s.parent == g.id and s.root == fit.id for g, s in zip(gn, normal))
+    assert all(s.attrs["params"] == 7 + CFG.code_len for s in normal)
+    assert all(s.attrs["rows"] == {"sdf": N, "render": CFG.max_grad_points} for s in normal)
+    assert all(g.host_ms >= s.host_ms for g, s in zip(gn, normal))
     assert [s.attrs["phase"] for s in gn] == ["coarse"] * 2 + ["fine"] * 2
     assert [s.attrs["samples"] for s in gn] == [8, 8, 50, 50]
     assert [s.attrs["rays"] for s in gn] == [R, R, R // 2, R // 2]
@@ -290,6 +301,69 @@ def test_readers_on_a_fabricated_registry():
     assert math.isfinite(want) and 0 < want < 100
 
 
+def test_256_readers_on_a_fabricated_registry():
+    """The latent-256 cell's readers: `recon_normal_device_ms` sums the
+    `recon.normal` card ms per `recon.gn`; the two 256 rooflines count the
+    folded kernels' work (`yardstick/decoder_work.py`) for the rows,
+    launches and codes of the `recon.fit` spans at latent 256 over the
+    device time of the kernels named `mlp_sdf256_*_tc` (fold kernels
+    included).  A registry without those spans, or a trace without those
+    kernels (the parent commit's), gives nothing."""
+    with timers.recording():
+        with timers.span("recon.fit", B=4, latent=256) as f:
+            f.set(rows={"mlp_sdf_jacobian": 1000, "mlp_sdf_value": 3000},
+                  launches={"mlp_sdf_jacobian": 2, "mlp_sdf_value": 1})
+            for _ in range(2):
+                with timers.span("recon.gn", jac_slots=0, jac_live=0):
+                    with timers.span("recon.normal", params=263,
+                                     rows={"sdf": 256, "render": 1024}):
+                        pass
+    sp = timers.spans()
+    for k, s in enumerate(sp):
+        s.device_ms = 1.0 + k
+    ctx = {"device_name": H100, "units": 1, "trace": {"kernels": {}}}
+    normal = [1.0 + k for k, s in enumerate(sp) if s.name == "recon.normal"]
+    assert _reader("recon_normal_device_ms")(ctx) == pytest.approx(sum(normal) / 2)
+    value, jac = _reader("mlp_sdf256_value_tc_roofline"), _reader("mlp_sdf256_jacobian_tc_roofline")
+    assert value(ctx) is None and jac(ctx) is None
+    ctx["trace"]["kernels"] = {"(anonymous namespace)::mlp_sdf256_value_tc_kernel(...)": 2e-3,
+                               "(anonymous namespace)::mlp_sdf256_value_tc_fold_kernel(...)": 1e-3,
+                               "(anonymous namespace)::mlp_sdf_value_tc_kernel(...)": 5.0,
+                               "(anonymous namespace)::mlp_sdf256_jacobian_tc_kernel(...)": 1e-3}
+    # per row: layer 0 over xyz, layers 1, 2, 5, 6, 7 whole, layer 3 to 253
+    # outputs, layer 4 over 256 inputs, layer 8; per code 2 x 256 x 512
+    row = 2 * (3 * 512 + 5 * 512 * 512 + 512 * 253 + 256 * 512 + 512)
+    full = 2 * (259 * 512 + 6 * 512 * 512 + 512 * 253 + 512)
+    fold = 2 * 2 * 256 * 512
+    v_ops = 3000 * row + 4 * fold
+    assert value(ctx) == pytest.approx(100.0 * v_ops / 989e12 / 3e-3)
+    j_ops = 1000 * (row + full) + 8 * fold
+    assert jac(ctx) == pytest.approx(100.0 * j_ops / 989e12 / 1e-3)
+    timers.clear()
+    with timers.recording():
+        with timers.span("recon.fit", B=4) as f:   # the parent's span: no latent
+            f.set(rows={"mlp_sdf_value": 3000}, launches={"mlp_sdf_value": 1})
+            with timers.span("recon.gn", jac_slots=0, jac_live=0):
+                pass
+    assert value(ctx) is None and _reader("recon_normal_device_ms")(ctx) is None
+
+
+def test_decoder_work_counts_the_model_at_64():
+    """Without the fold (latent 64) a row of the value kernel does the
+    model's forward pass (`yardstick/flops.py`), of the Jacobian two."""
+    from benchmark.yardstick import decoder_work, flops
+
+    dec = {"latent_size": 64, "dims": [512] * 8, "latent_in": [4]}
+    f = flops.forward_flops_per_row(dec)
+    assert not decoder_work.folded(64) and decoder_work.folded(256)
+    assert decoder_work.row_flops(64, False) == f and decoder_work.row_flops(64, True) == 2 * f
+    assert decoder_work.code_flops(64) == 0.0
+    assert decoder_work.value_stream_bytes(64) == mlp_sdf.VALUE_STAGES * mlp_sdf.VALUE_STAGE_BYTES
+    assert decoder_work.value_stream_bytes(256) == \
+        mlp_sdf.LAYOUTS[256].value_stages * mlp_sdf.VALUE_STAGE_BYTES
+    assert decoder_work.backward_stream_bytes(256) == mlp_sdf.LAYOUTS[256].backward_bytes
+
+
 def test_readers_report_nothing_without_spans(monkeypatch):
     ctx = {"device_name": H100, "units": 1,
            "trace": {"kernels": {"mlp_sdf_jacobian_tc_kernel": 1e-3}}}
@@ -332,7 +406,7 @@ def test_spans_on_the_card(tmp_path):
     with timers.profiler_trace(str(tmp_path)):
         opt.reconstruct_objects_batched(dec, cfg, *batch, compute_dtype=torch.bfloat16)
     sp = timers.spans()
-    assert [s.name for s in sp] == ["recon.fit"] + ["recon.gn"] * 4
+    assert [s.name for s in sp] == ["recon.fit"] + ["recon.gn", "recon.normal"] * 4
     assert all(s.device_ms is not None and s.device_ms > 0 for s in sp)
     R_f = math.ceil(R * cfg.active_ray_fraction)
     want = {"mlp_sdf_jacobian": 4 * B * (N + cfg.max_grad_points),
@@ -341,4 +415,5 @@ def test_spans_on_the_card(tmp_path):
     assert sp[0].attrs["launches"] == {"mlp_sdf_jacobian": 8, "mlp_sdf_value": 4}
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     gpu = [e["name"] for e in events if e.get("cat") == "gpu_user_annotation"]
-    assert gpu.count("recon.gn") == 4 and gpu.count("recon.fit") == 1
+    assert gpu.count("recon.gn") == gpu.count("recon.normal") == 4
+    assert gpu.count("recon.fit") == 1

@@ -424,6 +424,17 @@ def test_one_adam_step_matches_optax():
             assert np.abs(t.detach().numpy() - j).max() <= 1e-5 * np.abs(j).max()
 
 
+def test_code_ramp_scales_the_codes_past_the_axes_per_code():
+    """`--code-ramp` (the 256 fixture's): the same first draw, each code's
+    dims past the first three scaled by one factor in [0, 1)."""
+    plain, _ = t_train.draw_batch(torch.Generator().manual_seed(9), 8, 16, 256)
+    ramp, _ = t_train.draw_batch(torch.Generator().manual_seed(9), 8, 16, 256, code_ramp=True)
+    assert torch.equal(ramp[:, :3], plain[:, :3])
+    factor = ramp[:, 3:] / plain[:, 3:]
+    assert torch.allclose(factor, factor[:, :1].expand_as(factor), rtol=1e-6, atol=0)
+    assert bool(((factor[:, 0] >= 0) & (factor[:, 0] < 1)).all())
+
+
 def test_train_fixture_decoder_lowers_the_loss_and_writes_the_npz(tmp_path):
     out = tmp_path / "dec.npz"
     res = t_train.main(["--steps", "30", "--batch-codes", "8", "--pts-per-code", "128",
