@@ -80,6 +80,32 @@ from the work the folded kernels do (`benchmark/yardstick/
 decoder_work.py`), in f32 from the model's (the f32 kernels fold nothing).
 These are the 256 entries of the kernels line.
 
+Phase 7c holds the fit's normal equations (`ops/cuda/normal_solve.py`,
+`csrc/normal_solve.cu`) on the traffic of the three fit cells: one batch
+of `recon_b128.gpu_fast` (bf16, 128 objects of 71 unknowns, one row
+chunk), `recon_b128.deepsdf256` (bf16, 263 unknowns) and `recon_b8.f32`
+(f32, 8 objects of 71 unknowns: 6 row chunks, so the chunked sums and the
+solve's chunk-ordered adds), each its configuration, fixture and the first
+batch of its traffic from SEED_256, traced by the profiler.  It fails
+unless the kernels ran 2 launches a GN iteration and the trace's
+`recon.normal` spans launched those two kernels alone: no batched LU
+kernel (`getrf`, `getf2`, `laswp`, `trsm`, pointer displacement, pivot
+set-up).  The batch's other LU kernels are printed: the rotation prior's
+3 x 3 `torch.linalg.det` (`recon/losses.py`) runs cuBLAS's
+`getrf_semiwarp`.  On the inputs of the batch's first GN iteration the
+kernels are held to the op route and the f64 solve at the wrapper's
+tolerances (`normal_solve.gaps`, `within`), twice to the same bits, and
+timed (CUDA events) beside the op route, the sums kernel followed by the
+library's batched Cholesky (`sums_then_cholesky`: the design the solve
+kernel was chosen over, held to the same tolerances) and their bound
+(operations over the f32 rate, bytes over the memory's;
+`normal_solve.flops`, `io_bytes`), with each route's launches.  Then the
+group route (the sums all-reduced between the launches, as the sharded
+fit of phase 13a runs it) on a one-rank NCCL group must give each cell's
+group-less bits in 2 launches.  These are the kernels line's
+`normal_solve` entries (b8's as the 71 entry's `small`); phases 13, 14
+and 16 count their launches on each path (`counting_normal_solves`).
+
 Phase 8 drives the per-frame tracking path, and phase 9 the keyframe
 stage and bundle adjustment (torch ops on the card; they launch no
 kernel of the port), at KITTI size: 1241x376 uint8 images, fx = fy =
@@ -443,6 +469,9 @@ F32_ROWS = (1, 31, 33, 511, 2048, 2049, 14336)
 STEREO_BAND, RGBD_BAND = 0.166, 0.277
 # (bf16 dense tensor-core FLOP/s, memory bytes/s): NVIDIA data sheets
 PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H200": (989e12, 4.8e12), "H100": (989e12, 3.35e12)}
+PEAK_F32 = 67e12   # H100 SXM, f32 outside the tensor cores
+# kernels of a batched LU, cuBLAS's or MAGMA's (lower case)
+LU_KERNELS = ("getrf", "getf2", "laswp", "trsm", "displace_pointers", "pivinfo")
 
 
 def check(ok, what):
@@ -2782,10 +2811,10 @@ def sharded_recon_step(fixture, cfg, dtype, batch, mesh, tag, smi):
             fixture, cfg, *(batch[k] for k in sharded_recon.BATCH_KEYS[:-1]),
             code_init=batch["code_init"], compute_dtype=dtype)
 
-    mlp_sdf.reset_launch_counts()
+    reset_launches()
     got = sharded()
     torch.cuda.synchronize()
-    launches = dict(mlp_sdf.LAUNCHES)
+    launches = launches_now()
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
     own = [mlp_sdf.kernel_name(op, dtype) for op in ("mlp_sdf_value", "mlp_sdf_jacobian")]
     others = [mlp_sdf.kernel_name(op, other) for op in ("mlp_sdf_value", "mlp_sdf_jacobian")]
@@ -2941,7 +2970,7 @@ def distributed_cli_step(dev, smi, tmp):
             # every run starts from no BA capacity buckets (the module keeps the
             # last ones per map shape, and other buckets pad the sums otherwise)
             lm._bucket_memo.clear()
-            mlp_sdf.reset_launch_counts()
+            reset_launches()
             t0 = time.perf_counter()
             with mock.patch.object(slam.SLAMSystem, "__init__", watched(mode)), \
                     mock.patch.object(sharded_recon, "reconstruct_sharded", counted_recon), \
@@ -2949,7 +2978,7 @@ def distributed_cli_step(dev, smi, tmp):
                 res = run_slam.main(argv)
             torch.cuda.synchronize()
             if mode != "plain":
-                launches[mode] = dict(mlp_sdf.LAUNCHES)
+                launches[mode] = launches_now()
             runs[mode] = {"s": time.perf_counter() - t0, "summary": res["summary"],
                           "traj": np.loadtxt(os.path.join(out, "CameraTrajectory.txt"), ndmin=2),
                           "objects": io_mod.load_map_objects(os.path.join(out, "MapObjects.txt"))}
@@ -3026,15 +3055,14 @@ def nbv_card_vs_cpu(state, host, target, cam_t_wc, cam, fixture, dec_cpu, tag):
     """13c: `nbv.generate` aimed at `target` on the card against the CPU ->
     (report, the card run's decoder launches, the CPU's plan)."""
     from dsp_slam_rgbd_tpu_torch.active import nbv
-    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
 
     def card_nbv():
         return nbv.generate(state, cam_t_wc, decoder=fixture, cam=cam, target=target)
 
-    mlp_sdf.reset_launch_counts()
+    reset_launches()
     got = card_nbv()
     torch.cuda.synchronize()
-    launches = dict(mlp_sdf.LAUNCHES)
+    launches = launches_now()
     want = nbv.generate(host, cam_t_wc, decoder=dec_cpu, cam=cam, target=target)
     scale = float(np.abs(want.rewards).max())
     rep = {"map": tag, "target": got.target_obj, "best": int(np.argmax(got.rewards)),
@@ -3061,7 +3089,6 @@ def active_step(dev, smi, fixture, object_map):
     from dsp_slam_rgbd_tpu_torch.active import rrt
     from dsp_slam_rgbd_tpu_torch.models import deepsdf
     from dsp_slam_rgbd_tpu_torch.ops import lie
-    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
     from dsp_slam_rgbd_tpu_torch.system import renderer
     from dsp_slam_rgbd_tpu_torch.tools import plane_world as pw
 
@@ -3099,7 +3126,7 @@ def active_step(dev, smi, fixture, object_map):
     # the renderer: every object composited at stride 16, one object at stride 8
     K = torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]])
     hw = (pw.KITTI.h, pw.KITTI.w)
-    mlp_sdf.reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     comp = renderer.render_map_objects(fixture, state, K, t_cw, hw, n_samples=16, stride=16)
     torch.cuda.synchronize()
@@ -3115,7 +3142,7 @@ def active_step(dev, smi, fixture, object_map):
     one = renderer.render_object_depth(fixture, state.obj_code[o], t_co, K, hw, n_samples=16,
                                        stride=8)
     torch.cuda.synchronize()
-    launches["render"] = dict(mlp_sdf.LAUNCHES)
+    launches["render"] = launches_now()
     comp_cpu = renderer.render_map_objects(dec_cpu, host, K, t_cw.cpu(), hw, n_samples=16,
                                            stride=16)
     one_cpu = renderer.render_object_depth(dec_cpu, host.obj_code[o], t_co.cpu(), K, hw,
@@ -3216,15 +3243,54 @@ def _vertex_gap(a, b):
     return float(max(cKDTree(b).query(a)[0].max(), cKDTree(a).query(b)[0].max()))
 
 
-def _launched(fn):
-    """(fn's result, each decoder kernel's launches in it, seconds)."""
+# the normal equations' launches by the kernels line's name since the last
+# `reset_launches`, counted while `counting_normal_solves` lasts
+NORMAL_LAUNCHES: dict = {}
+
+
+@contextlib.contextmanager
+def counting_normal_solves():
+    """While it lasts, count every fit's normal-equation launches into
+    NORMAL_LAUNCHES as `normal_solve.<unknowns>`, the kernels line's entry
+    (`normal_solve.LAUNCHES` alone does not tell 71 from 263 unknowns)."""
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import normal_solve
+
+    solve = normal_solve.solve
+
+    def counted(cfg, code, *a, **k):
+        before = normal_solve.LAUNCHES
+        out = solve(cfg, code, *a, **k)
+        key = f"normal_solve.{7 + code.shape[1]}"
+        NORMAL_LAUNCHES[key] = NORMAL_LAUNCHES.get(key, 0) + normal_solve.LAUNCHES - before
+        return out
+
+    with mock.patch.object(normal_solve, "solve", counted):
+        yield
+
+
+def reset_launches():
+    """Zero the decoder kernels' launch counts and the normal equations'."""
     from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
 
     mlp_sdf.reset_launch_counts()
+    NORMAL_LAUNCHES.clear()
+
+
+def launches_now() -> dict:
+    """Each kernel's launches since `reset_launches`: the decoder kernels'
+    (`mlp_sdf.LAUNCHES`) and the normal equations' (`NORMAL_LAUNCHES`)."""
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
+
+    return {**mlp_sdf.LAUNCHES, **NORMAL_LAUNCHES}
+
+
+def _launched(fn):
+    """(fn's result, each kernel's launches in it (`launches_now`), seconds)."""
+    reset_launches()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(mlp_sdf.LAUNCHES), time.perf_counter() - t0
+    return out, launches_now(), time.perf_counter() - t0
 
 
 def aux_tools_step(dev, smi, keep, ate12a):
@@ -3401,9 +3467,8 @@ def tools_phase(dev, smi, keep, phase4_fits_per_s, ate12a):
     # ---- 14e. the aux tools
     rep["aux"], aux_paths = aux_tools_step(dev, smi, keep, ate12a)
     paths.update(aux_paths)
-    seen = {k for n in paths.values() for k, v in n.items() if v > 0}
-    check(seen == {"mlp_sdf_value", "mlp_sdf_jacobian", "mlp_sdf_value_f32",
-                   "mlp_sdf_jacobian_f32"}, f"phase 14 launched all four kernels: {paths}")
+    seen = {k for n in paths.values() for k, v in n.items() if v > 0 and k in ALL_KERNELS}
+    check(seen == set(ALL_KERNELS), f"phase 14 launched all four decoder kernels: {paths}")
     rep["launches_by_path"] = paths
     rep["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 14 launches by path {paths}; phase 14 took {rep['phase_s']:.0f} s", flush=True)
@@ -3502,7 +3567,6 @@ def circuit_phase(dev, smi):
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import tracking_driver as td
-    from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
     from dsp_slam_rgbd_tpu_torch.system import mapping_stage as mstage
     from dsp_slam_rgbd_tpu_torch.system import slam
     from dsp_slam_rgbd_tpu_torch.tools import run_slam
@@ -3552,7 +3616,7 @@ def circuit_phase(dev, smi):
         out = os.path.join(tmp, "out16")
         vocab = os.path.join(tmp, "vocab16.npz")   # loaded: the JAX run's, as JAX_CIRCUIT's
         shutil.copy(td.CIRCUIT_VOCAB, vocab)
-        mlp_sdf.reset_launch_counts()
+        reset_launches()
         t0 = time.perf_counter()
         with mock.patch.object(mstage.loop_closing, "correct_loop", timed_correct_loop), \
                 mock.patch.object(slam.SLAMSystem, "_adopt", watched_adopt), \
@@ -3562,7 +3626,7 @@ def circuit_phase(dev, smi):
             res = run_slam.main(td.circuit_args(paths, out, vocab))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = dict(mlp_sdf.LAUNCHES)
+        launches = launches_now()
         got = td.circuit_metrics(paths, out)
     system, summ = res["system"], res["summary"]
     ok = np.array([bool(o) for _, _, o in system.tracker.trajectory])
@@ -3913,6 +3977,210 @@ def deepsdf256_phase(dev, smi, peak_bf16, mem_bw):
     return rep, kernels
 
 
+def normal_kernels(prof):
+    """(names of the kernels launched inside the profiled `recon.normal`
+    spans, names of the others), by each kernel's launch on the host's
+    clock (the chrome trace's correlation ids)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == "recon.normal"]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    inside, elsewhere = set(), set()
+    for e in events:
+        if e.get("cat") == "kernel":
+            ts = launched.get(e.get("args", {}).get("correlation"))
+            hit = ts is not None and any(a <= ts <= b for a, b in spans)
+            (inside if hit else elsewhere).add(e["name"])
+    return inside, elsewhere
+
+
+def sums_then_cholesky(cfg, code, sdf, ren, drot, res_rot):
+    """The design the solve kernel was chosen over: the sums kernel, then H
+    and b formed from its buffer by torch ops (the op route's damping) and
+    the library's batched Cholesky (`torch.linalg.cholesky_ex`,
+    `torch.cholesky_solve`) -> (dx, info, loss)."""
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import normal_solve
+
+    B, L = code.shape
+    n, dev = 7 + L, code.device
+    sz = normal_solve.sizes(B, n)
+    f32 = dict(dtype=torch.float32, device=dev)
+    outs = dict(sums=torch.empty((B, sz["chunks"], 2, sz["stride"]), **f32),
+                dx=torch.empty((B, n), **f32), info=torch.empty((B,), dtype=torch.int32,
+                                                                device=dev),
+                loss=torch.empty((B,), **f32))
+    normal_solve._launch(0, cfg, code, sdf, ren, drot, res_rot, sz, outs)
+    return assemble_and_cholesky(cfg, code, drot, res_rot, outs["sums"].sum(1),
+                                 sz["count_at"])
+
+
+def assemble_and_cholesky(cfg, code, drot, res_rot, sums, count_at):
+    """`sums_then_cholesky` past the sums kernel: the chunks' sums (B, 2,
+    stride) -> (dx, info, loss)."""
+    B, L = code.shape
+    n, m = 7 + L, 8 + L
+    f32 = dict(dtype=torch.float32, device=code.device)
+    tm = m * (m + 1) // 2
+    rows, cols = torch.tril_indices(m, m, device=code.device)
+    ext = torch.zeros(B, 2, m, m, **f32)   # per term [J | r]ᵀ[J | r], lower
+    ext[:, :, rows, cols] = sums[:, :, :tm]
+    count = sums[:, :, count_at].clamp_min(1)
+    k = torch.tensor([cfg.k2, cfg.k1], **f32)
+    A = (k[:, None, None] * ext / count[..., None, None]).sum(1)
+    H = A[:, :n, :n] + A[:, :n, :n].tril(-1).transpose(1, 2)
+    b = -A[:, n, :n]
+    H[:, 7:, 7:] += cfg.k3 * torch.eye(L, **f32)
+    b[:, 7:] -= cfg.k3 * code
+    H[:, :7, :7] += cfg.k4 * drot[:, :, None] * drot[:, None, :] + torch.eye(7, **f32)
+    H[:, 6, 6] += cfg.scale_damping
+    b[:, :7] += cfg.k4 * drot * res_rot[:, None]
+    loss = (k * (sums[:, :, tm - 1] + sums[:, :, tm]) / count).sum(1)
+    chol, info = torch.linalg.cholesky_ex(H)
+    return torch.cholesky_solve(b[..., None], chol)[..., 0], info, loss
+
+
+def normal_solve_phase(dev, smi, mem_bw):
+    """Phase 7c (see the module's docstring) -> (report, the kernels line's
+    `normal_solve` entries)."""
+    import torch.distributed as tdist
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.traffic import ellipsoid as traffic_gen
+    from dsp_slam_rgbd_tpu_torch.models import deepsdf
+    from dsp_slam_rgbd_tpu_torch.ops.cuda import normal_solve
+    from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
+    from dsp_slam_rgbd_tpu_torch.recon import optimizer as opt
+    from dsp_slam_rgbd_tpu_torch.utils import timers
+
+    t_phase = time.perf_counter()
+    rep, kernels, recorded = {"card": smi}, {}, {}
+    for cell, config, fixture, traffic, dtype in (
+            ("recon_b128.gpu_fast", "kitti_cars64_gpu_fast", FIXTURE, "ellipsoid_b128",
+             torch.bfloat16),
+            ("recon_b128.deepsdf256", "shapenet_deepsdf256_gpu_fast", FIXTURE_256,
+             "ellipsoid_b128", torch.bfloat16),
+            ("recon_b8.f32", "kitti_cars64_f32", FIXTURE, "ellipsoid_b8", torch.float32)):
+        params = _load_json("benchmark", "traffic", traffic + ".json")
+        p = traffic_gen.make_pool(params, SEED_256)[0]
+        B, N, R = (int(params[k]) for k in ("objects_per_batch", "points", "rays"))
+        args = (torch.as_tensor(p["T_init"], device=dev), torch.as_tensor(p["pts"], device=dev),
+                torch.ones(B, N, dtype=torch.bool, device=dev),
+                torch.as_tensor(p["rays"], device=dev),
+                torch.ones(B, R, dtype=torch.bool, device=dev),
+                torch.as_tensor(p["depth"], device=dev), torch.as_tensor(p["fg_mask"], device=dev))
+        c = _load_json("benchmark", "configs", config + ".json")
+        cfg = opt.ReconConfig(**{**c["optimizer"], **c["preset"]})
+        dec = deepsdf.load_npz(fixture, device=dev)
+        seen, solve = [], normal_solve.solve
+
+        def record(cfg_, code, sdf, ren, drot, res_rot, *a, **k):
+            if not seen:
+                seen.append(tuple(tuple(x.clone() for x in v) if isinstance(v, tuple)
+                                  else v.clone() for v in (code, sdf, ren, drot, res_rot)))
+            return solve(cfg_, code, sdf, ren, drot, res_rot, *a, **k)
+
+        def fit():
+            return opt.reconstruct_objects_batched(dec, cfg, *args, compute_dtype=dtype)
+
+        with mock.patch.object(normal_solve, "solve", record):
+            fit()   # builds, warms and records
+        torch.cuda.synchronize()
+        normal_solve.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fit()
+            torch.cuda.synchronize()
+        timers.clear()
+        launches = normal_solve.LAUNCHES
+        check(launches == 2 * cfg.num_iterations,
+              f"7c {cell}: 2 launches a GN iteration: {launches}")
+        inside, elsewhere = normal_kernels(prof)
+        lu = sorted(k for k in inside if any(s_ in k.lower() for s_ in LU_KERNELS))
+        lu_elsewhere = sorted(k for k in elsewhere if any(s_ in k.lower() for s_ in LU_KERNELS))
+        check(not lu, f"7c {cell}: no batched LU kernel in the normal equations: {lu}")
+        check(any("sums_kernel" in k for k in inside) and any("solve_kernel" in k for k in inside)
+              and len(inside) == 2, f"7c {cell}: the two kernels alone in the spans: {inside}")
+        inputs = seen[0]
+        recorded[cell] = cfg, inputs
+        code, sdf, ren = inputs[:3]
+        n = 7 + code.shape[1]
+        chunks = normal_solve.sizes(B, n)["chunks"]
+        check(chunks == {128: 1, 8: 6 if n == 71 else 2}[B],
+              f"7c {cell}: {chunks} row chunks at {B} objects of {n} unknowns")
+        got = normal_solve.solve(cfg, *inputs)
+        again = normal_solve.solve(cfg, *inputs)
+        op = normal_solve.solve_plain(cfg, *inputs)
+        lib = sums_then_cholesky(cfg, *inputs)
+        torch.cuda.synchronize()
+        g = normal_solve.gaps(cfg, inputs, got, op)
+        check(normal_solve.within(g) and g["ok_objects"] > 0, f"7c {cell}: kernels vs op route {g}")
+        check(all(bits_equal(a, b_) for a, b_ in zip(got, again)), f"7c {cell}: same bits twice")
+        g_lib = normal_solve.gaps(cfg, inputs, lib, op)
+        check(normal_solve.within(g_lib), f"7c {cell}: sums + library Cholesky vs op route {g_lib}")
+        live = int(sdf[2].sum()) + int(ren[2].sum())
+        slots = sdf[2].numel() + ren[2].numel()
+        flops = normal_solve.flops(B, n, live)
+        io = normal_solve.io_bytes(B, n, live, slots)
+        ms = cuda_ms(lambda: normal_solve.solve(cfg, *inputs), 20)
+        op_ms = cuda_ms(lambda: normal_solve.solve_plain(cfg, *inputs), 10)
+        lib_ms = cuda_ms(lambda: sums_then_cholesky(cfg, *inputs), 10)
+        lib_launches, _ = traced(lambda: sums_then_cholesky(cfg, *inputs))
+        op_launches, _ = traced(lambda: normal_solve.solve_plain(cfg, *inputs))
+        bound = {"operations": flops / PEAK_F32 * 1e3, "bytes": io / mem_bw * 1e3}
+        bound_by = max(bound, key=bound.get)
+        rep[cell] = dict(g, launches=launches, n=n, objects=B, chunks=chunks, live_rows=live,
+                         slots=slots, ms=ms, op_ms=op_ms, op_launches=op_launches,
+                         library_cholesky_ms=lib_ms, library_cholesky_launches=lib_launches,
+                         library_cholesky_dx_f64=g_lib["dx_f64"], bound_ms=bound[bound_by],
+                         bound_by=bound_by, lu_kernels_elsewhere=lu_elsewhere)
+        entry = dict(launches=launches, ms=ms, plain_ms=op_ms, library_ms=lib_ms,
+                     bound_ms=bound[bound_by], bound_by=bound_by, max_abs_err=g["dx_f64"],
+                     rows=live, dtype="float32")
+        if n in kernels:   # b8 beside b128 at 71 unknowns
+            kernels[n]["small"] = dict(entry, cell=cell)
+        else:
+            kernels[n] = dict(name=f"normal_solve.{n}", route="cuda",
+                              source="dsp_slam_rgbd_tpu_torch/csrc/normal_solve.cu",
+                              replaces="none (the JAX package's jnp.linalg.solve, "
+                                       "dsp_slam_rgbd_tpu/recon/optimizer.py:241)",
+                              cell=cell, **entry)
+        print(f"phase 7c normal equations {cell} (B={B}, {n} unknowns, {chunks} row chunks, "
+              f"{live} of {slots} rows live): {launches} launches a batch, the spans' kernels "
+              f"{sorted(inside)}, LU kernels elsewhere in the batch {lu_elsewhere}; kernels vs "
+              f"op route dx {g['dx_op']:.3g}, vs f64 dx {g['dx_f64']:.3g} (op route "
+              f"{g['op_f64']:.3g}), loss {g['loss']:.3g}, {g['ok_objects']} ok in both, same bits "
+              f"twice; kernels {ms:.4f} ms (2 launches), sums + library Cholesky {lib_ms:.4f} ms "
+              f"({lib_launches} launches, vs f64 dx {g_lib['dx_f64']:.3g}), op route "
+              f"{op_ms:.4f} ms ({op_launches} launches), bound {bound[bound_by]:.4f} ms "
+              f"({bound_by}) on {smi}", flush=True)
+    # the group route (`parallel/sharded_recon.py`: the sums all-reduced
+    # between the launches) on a one-rank group gives the group-less bits
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.initialize(f"file://{tmp}/rendezvous", 1, 0, device=dev)
+        try:
+            for cell, (cfg, inputs) in recorded.items():
+                alone = normal_solve.solve(cfg, *inputs)
+                normal_solve.reset_launch_counts()
+                grouped = normal_solve.solve(cfg, *inputs, group=tdist.group.WORLD)
+                torch.cuda.synchronize()
+                same = all(bits_equal(a, b_) for a, b_ in zip(grouped, alone))
+                check(same and normal_solve.LAUNCHES == 2,
+                      f"7c {cell}: the group route on one rank, 2 launches, the same bits: "
+                      f"{normal_solve.LAUNCHES} launches, same {same}")
+                rep[cell]["group_route_same_bits"] = same
+        finally:
+            tdist.destroy_process_group()
+    print(f"phase 7c group route on a one-rank NCCL group: 2 launches and the group-less "
+          f"bits in {sorted(recorded)}", flush=True)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 7c took {rep['phase_s']:.0f} s", flush=True)
+    return rep, [kernels[71], kernels[263]]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measured numbers to this JSON file")
@@ -4198,6 +4466,8 @@ def main(argv=None):
                       for t in (t_jac, t_jac_sdf)), flush=True)
     # ---- 7b. DeepSDF's ShapeNet layout (latent 256) on the main path
     report["deepsdf256"], kernels_256 = deepsdf256_phase(dev, smi, peak_bf16, mem_bw)
+    # ---- 7c. the normal equations on both bf16 cells' traffic
+    report["normal_solve"], kernels_normal = normal_solve_phase(dev, smi, mem_bw)
     # ---- 8 / 9a. per-frame tracking and the keyframe stage at KITTI size
     report["tracking"] = tracking_phase(dev, smi)
     # ---- 9b / 9c. bundle adjustment at KITTI-00 scale, and card vs CPU
@@ -4211,16 +4481,19 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as keep:
         # ---- 12. the system loop and the command line (f32 kernels in the worker)
         report["system"] = system_phase(dev, smi, keep)
-        # ---- 13. the scale-out tier (NCCL, world size 1) and active mapping
-        report["scale_out"], paths13 = scale_out_phase(dev, smi, fixture, args, corridor,
-                                                          object_map)
-        # ---- 14. the benches and the aux tools
-        report["tools"], paths14 = tools_phase(dev, smi, keep, report["main_path"]["fits_per_s"],
-                                               report["system"]["cli_objects"]["ate_m"])
+        with counting_normal_solves():
+            # ---- 13. the scale-out tier (NCCL, world size 1) and active mapping
+            report["scale_out"], paths13 = scale_out_phase(dev, smi, fixture, args, corridor,
+                                                              object_map)
+            # ---- 14. the benches and the aux tools
+            report["tools"], paths14 = tools_phase(
+                dev, smi, keep, report["main_path"]["fits_per_s"],
+                report["system"]["cli_objects"]["ate_m"])
     # ---- 15. every decoder kernel repeats bit for bit inside the loop and under stress
     report["repeat"] = repeat_phase(smi)
     # ---- 16. a loop closes at KITTI size with objects through the command line
-    report["circuit"], paths16 = circuit_phase(dev, smi)
+    with counting_normal_solves():
+        report["circuit"], paths16 = circuit_phase(dev, smi)
     late_traces(report, smi)
     # ---- 17. the fixed-order scatter-add on the main path's scatters
     report["segment_sum"] = scatter_phase(dev, smi, mem_bw)
@@ -4241,13 +4514,23 @@ def main(argv=None):
              # the main path's other Jacobian launch size (the SDF term)
              small={k: v for k, v in t_jac_sdf.items() if k in keys}),
     ] + kernels_f32
-    # `launches`: the kernel's main path (phase 4 for bf16, phase 10 for f32);
-    # beside it, its count on each path of phases 13, 14 and 16
-    for k in kernels:
-        k["launches_by_path"] = {path: n[k["name"]]
+    # `launches`: the kernel's main path (phase 4 for bf16, phase 10 for f32,
+    # 7c for the normal equations); beside it, its count on each path of
+    # phases 13, 14 and 16
+    for k in kernels + kernels_normal:
+        k["launches_by_path"] = {path: n.get(k["name"], 0)
                                  for path, n in {**paths13, **paths14, **paths16}.items()}
+    # every fit of those paths solves 71 unknowns on the kernels, 2 launches
+    # a GN iteration; 13a's sharded fits take the group route
+    fits71 = kernels_normal[0]["launches_by_path"]
+    check(kernels_normal[0]["name"] == "normal_solve.71"
+          and all(fits71[p] > 0 and fits71[p] % 2 == 0
+                  for p in ("13a gpu_fast bf16", "13a ReconConfig() f32", "14a bench",
+                            "14d bench_scaling", "16 loop circuit at KITTI size"))
+          and not any(kernels_normal[1]["launches_by_path"].values()),
+          f"the normal equations' kernels on the paths of phases 13, 14, 16: {kernels_normal}")
     # the 256 kernels run on phase 7b's paths alone
-    kernels += kernels_256
+    kernels += kernels_256 + kernels_normal
     if opts.report:
         os.makedirs(os.path.dirname(os.path.abspath(opts.report)), exist_ok=True)
         with open(opts.report, "w") as f:

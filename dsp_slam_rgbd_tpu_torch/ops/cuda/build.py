@@ -92,6 +92,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("schur_pcg_solve", "schur_pcg_launch"):
         getattr(lib, name).argtypes = [ctypes.POINTER(q), i, i, p]
         getattr(lib, name).restype = i
+    lib.normal_solve_launch.argtypes = [ctypes.POINTER(q), i, ctypes.POINTER(ctypes.c_float), i,
+                                        i, p]
+    lib.normal_solve_launch.restype = i
+    lib.normal_solve_sizes.argtypes = [q, q, ctypes.POINTER(q)]
+    lib.normal_solve_sizes.restype = i
     lib.mlp_sdf_error_string.argtypes = [i]
     lib.mlp_sdf_error_string.restype = ctypes.c_char_p
 

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from dsp_slam_rgbd_tpu_torch.ops import lie, robust
-from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf
+from dsp_slam_rgbd_tpu_torch.ops.cuda import mlp_sdf, normal_solve
 from dsp_slam_rgbd_tpu_torch.parallel import distributed as dist
 from dsp_slam_rgbd_tpu_torch.recon import losses
 from dsp_slam_rgbd_tpu_torch.utils import timers
@@ -114,73 +114,6 @@ def select_active_rays(res_ray, min_abs, fg_mask, ray_mask, th: float,
     return torch.sort(score, dim=-1, descending=True, stable=True)[1][:, :n_active]
 
 
-def _solve_normal(cfg: ReconConfig, code, sdf_t, rr_sdf, ren, rr_ren, drot, res_rot,
-                  group, span):
-    """The GN step's normal equations and their solve -> (dx (B, 7 + L),
-    solve info (B,), loss (B,)).
-
-    Reference :163-186: the Huber weight scales the residual in b only; H
-    uses the raw J, as the reference does.  Per term the sums over the rows
-    (JᵀJ, Jᵀr, Σr², live count), added up over the group, then normalized
-    by the count.  `span` (the iteration's) gets the render term's
-    Jacobian slots and live rows of this rank."""
-    B, L = code.shape
-    sums = []
-    for jac_pose, jac_code, mask, rr in (
-            (sdf_t.jac_pose, sdf_t.jac_code, sdf_t.mask, rr_sdf),
-            (ren.jac_pose, ren.jac_code, ren.mask, rr_ren)):
-        J = torch.where(mask[..., None], torch.cat([jac_pose, jac_code], -1), 0.0)
-        sums += [J.transpose(1, 2) @ J,
-                 (J.transpose(1, 2) @ torch.where(mask, rr, 0.0)[..., None])[..., 0],
-                 torch.sum(rr * rr, dim=-1), mask.sum(-1)]
-    span.set(jac_slots=ren.mask.numel(), jac_live=sums[7])
-    sums = dist.psum(sums, group)
-    H = torch.zeros(B, 7 + L, 7 + L, device=code.device)
-    b = torch.zeros(B, 7 + L, device=code.device)
-    term_loss = []
-    for k, (JtJ, Jtr, rsq, count) in zip((cfg.k2, cfg.k1), (sums[:4], sums[4:])):
-        n = torch.clamp_min(count, 1).float()[:, None]
-        H = H + k * JtJ / n[..., None]
-        b = b - k * Jtr / n
-        term_loss.append(rsq / torch.clamp_min(count, 1))
-    sdf_loss, ren_loss = term_loss
-    loss = cfg.k1 * ren_loss + cfg.k2 * sdf_loss
-    eye_code = torch.eye(L, device=code.device)
-    H[:, 7:, 7:] += cfg.k3 * eye_code
-    b[:, 7:] -= cfg.k3 * code
-    H[:, :7, :7] += cfg.k4 * drot[:, :, None] * drot[:, None, :]
-    # the reference's J_rot is −dE/dω and its double negative
-    # `b -= k4·(−Jᵀr)` (optimizer.py:179-181) gives b += k4·J·r, the descent
-    # direction of the true gradient.  Kept as it is:
-    b[:, :7] += cfg.k4 * drot * res_rot[:, None]
-    H[:, :7, :7] += torch.eye(7, device=code.device)
-    H[:, 6, 6] += cfg.scale_damping
-
-    dx, info = _solve_batched(H, b)
-    return dx, info, loss
-
-
-# the widest systems the CPU's batched LU is run on more than one thread for
-CPU_THREADED_SOLVE_MAX = 128
-
-
-def _solve_batched(H, b):
-    """`torch.linalg.solve_ex(H, b)`; on the CPU, two or more systems wider
-    than `CPU_THREADED_SOLVE_MAX` are solved on one thread: PyTorch 2.13's
-    CPU build (oneMKL 2024.2) fails in the threaded batched LU from ~150
-    unknowns (SLASWP rejects its parameter 6, then the call hangs or
-    returns invalid pivots), and the 263-wide systems of a latent-256
-    decoder are past that."""
-    if H.device.type != "cpu" or H.shape[0] < 2 or H.shape[-1] <= CPU_THREADED_SOLVE_MAX:
-        return torch.linalg.solve_ex(H, b)
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return torch.linalg.solve_ex(H, b)
-    finally:
-        torch.set_num_threads(prev)
-
-
 def _gn_iteration(decoder, cfg: ReconConfig, compute_dtype, carry, rays,
                   ray_mask, depth_obs, fg_mask, pts_surface, pts_mask,
                   n_samples: int, group=None, span=timers.OFF):
@@ -216,12 +149,15 @@ def _gn_iteration(decoder, cfg: ReconConfig, compute_dtype, carry, rays,
     rr_ren = robust.robust_residuals(ren.res, cfg.b1, ren.mask)[0]
     drot, res_rot = losses.compute_rotation_loss_sim3(t_obj_cam)
 
-    # normal equations and solve: the span `recon.normal`, 7 + L unknowns an
-    # object over J's rows of each term
+    # normal equations and solve (reference :163-186): the span `recon.normal`,
+    # 7 + L unknowns an object over J's rows of each term, `path` the route
+    # ("kernels" or "ops")
     with timers.span("recon.normal", params=7 + L,
-                     rows={"sdf": sdf_t.jac_pose.shape[-2], "render": ren.jac_pose.shape[-2]}):
-        dx, info, loss = _solve_normal(cfg, code, sdf_t, rr_sdf, ren, rr_ren, drot, res_rot,
-                                       group, span)
+                     rows={"sdf": sdf_t.jac_pose.shape[-2], "render": ren.jac_pose.shape[-2]},
+                     path=normal_solve.route(code.device, 7 + L)):
+        dx, info, loss = normal_solve.solve(
+            cfg, code, (sdf_t.jac_pose, sdf_t.jac_code, sdf_t.mask, rr_sdf),
+            (ren.jac_pose, ren.jac_code, ren.mask, rr_ren), drot, res_rot, group, span)
     t_new = lie.exp_sim3(cfg.learning_rate * dx[:, :7]) @ t_obj_cam
     code_new = code + cfg.learning_rate * dx[:, 7:]
     ok = (good & torch.isfinite(loss) & torch.isfinite(dx).all(-1) & (info == 0)

@@ -252,8 +252,8 @@ def _fit_run(c, seed):
 def _one_thread():
     """PyTorch 2.13's CPU batched LU (`torch.linalg.solve_ex` over 2 or more
     systems of ~150 unknowns or more, MKL) fails in SLASWP with more than
-    one thread.  The port's fit guards its own solve
-    (`optimizer._solve_batched`); the reference (`benchmark/reference/
+    one thread.  The port's fit guards its own solve on the CPU
+    (`normal_solve.solve_batched`); the reference (`benchmark/reference/
     recon.py`) solves the same systems and does not."""
     prev = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -317,19 +317,20 @@ def test_one_gauss_newton_iteration_matches_the_reference():
 
 def test_the_fit_solves_wide_systems_on_more_cpu_threads():
     """The port's batched solve of 263-wide systems on a CPU with 4 threads
-    (`optimizer._solve_batched`): in a child process with a time limit,
+    (`ops/cuda/normal_solve.py::solve_batched`, the CPU route's solve): in a
+    child process with a time limit,
     since PyTorch 2.13's threaded CPU batched LU hangs on such systems.  It
     returns the single-system solves' answers, with the caller's thread
     count left as it was."""
     script = (
         "import torch\n"
-        "from dsp_slam_rgbd_tpu_torch.recon import optimizer\n"
+        "from dsp_slam_rgbd_tpu_torch.ops.cuda import normal_solve\n"
         "torch.set_num_threads(4)\n"
         "g = torch.Generator().manual_seed(0)\n"
         "A = torch.randn(3, 263, 263, generator=g)\n"
         "H = A @ A.transpose(1, 2) + 263 * torch.eye(263)\n"
         "b = torch.randn(3, 263, generator=g)\n"
-        "dx, info = optimizer._solve_batched(H, b)\n"
+        "dx, info = normal_solve.solve_batched(H, b)\n"
         "one = torch.stack([torch.linalg.solve(H[i], b[i]) for i in range(3)])\n"
         "assert int(info.abs().max()) == 0 and torch.get_num_threads() == 4\n"
         "print(float((dx - one).abs().max() / one.abs().max()))\n")
